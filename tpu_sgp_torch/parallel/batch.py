@@ -1,0 +1,271 @@
+"""Batched stamp restoration on one device.
+
+Port of ``restore_stamps`` and its helpers (``tpu_sgp/parallel/batch.py``).
+The JAX package vmaps the single-image solver; the port's solver is
+batch-first already, so the batch is one call. Torch tensors compute where
+they lie; numpy inputs are placed on ``device`` (the CPU unless the caller
+names another). A ``mesh`` waits for multi-device support (ROADMAP A13).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import SGPConfig
+from ..solvers.sgp import (SGPResult, SGPState, resume_from_state, solve,
+                           solve_with_state)
+
+
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return a.index_select(0, idx)
+
+
+def _batched_solve_two_phase(stamps, psf, bkgs, x0, fluxes, obj, beta0, lr0,
+                             sat, cfg: SGPConfig, phase1_iters: int,
+                             tail_bucket: int) -> SGPResult:
+    """Convergence-compacted batched solve (``batch.py:47-135``).
+
+    1. the full batch runs capped at ``phase1_iters``;
+    2. twice, the ``tail_bucket`` lanes that can still work (a stable sort
+       of ``converged | it > max_iter`` puts them first) are gathered,
+       resumed to ``cfg.max_iter`` and scattered back;
+    3. the full batch is resumed once more, which finishes any lanes the
+       two tail rounds could not hold.
+
+    Each lane follows the schedule of the single-phase solve."""
+    cfg1 = cfg.replace(max_iter=phase1_iters)
+    _, st = solve_with_state(stamps, psf, bkgs, x0, fluxes, obj, beta0, lr0,
+                             sat, cfg1)
+
+    # grow the phase-1 series buffers to the full budget so the resumed
+    # tail state scatters back elementwise; disabled (B, 1) buffers stay
+    pad = cfg.max_iter - phase1_iters
+    if cfg.track_discr:
+        st = st._replace(discr=torch.nn.functional.pad(st.discr, (0, pad)))
+    if cfg.errflag:
+        st = st._replace(err=torch.nn.functional.pad(st.err, (0, pad)))
+
+    for _ in range(2):
+        # workable lanes first (False sorts before True; stable ties). Not
+        # just ~converged: a lane that ran to cfg.max_iter keeps
+        # converged=False and would crowd out workable lanes.
+        done = st.converged | (st.it > cfg.max_iter)
+        idx = torch.argsort(done.to(torch.uint8), stable=True)[:tail_bucket]
+        st_tail = SGPState(*(_take(a, idx) for a in st))
+        args_tail = [_take(a, idx) for a in (stamps, bkgs, x0, fluxes, obj,
+                                             beta0, lr0, sat)]
+        _, st_tail = resume_from_state(args_tail[0], psf, *args_tail[1:],
+                                       st_tail, cfg)
+        st = SGPState(*(full.index_copy(0, idx, part)
+                        for full, part in zip(st, st_tail)))
+
+    res, _ = resume_from_state(stamps, psf, bkgs, x0, fluxes, obj, beta0,
+                               lr0, sat, st, cfg)
+    return res
+
+
+def _as_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def _prep(stamps, psf, bkgs, fluxes, x0, obj, beta0, lr0, sat_level, dtype,
+          device):
+    """Inputs as tensors on ``device`` (``batch.py:138-161``): per-lane
+    scalars broadcast to (B,), absent images as zeros."""
+    stamps = _as_tensor(stamps, dtype, device)
+    b, h, w = stamps.shape
+    psf = _as_tensor(psf, dtype, device)
+    bkgs = _as_tensor(bkgs, dtype, device)
+    if bkgs.dim() == 0:
+        bkgs = bkgs.expand(b)
+    lanes = lambda v: _as_tensor(v, dtype, device).expand(b).contiguous()
+    fluxes = (torch.zeros(b, dtype=dtype, device=device) if fluxes is None
+              else lanes(fluxes))
+    x0 = (torch.zeros_like(stamps) if x0 is None
+          else _as_tensor(x0, dtype, device))
+    obj = (torch.zeros_like(stamps) if obj is None
+           else _as_tensor(obj, dtype, device))
+    return (stamps, psf, bkgs, fluxes, x0, obj, lanes(beta0), lanes(lr0),
+            lanes(sat_level))
+
+
+def suggest_compaction(iters, batch_size: Optional[int] = None,
+                       margin: float = 1.25) -> dict:
+    """Pick ``phase1_iters`` and ``tail_bucket`` from a pilot run's
+    per-lane iteration counts (``batch.py:164-211``): minimise the modelled
+    lane-iterations B*p1 + tails while the two tail rounds clear the
+    unconverged-at-p1 count with ``margin`` headroom."""
+    iters = np.asarray(iters)
+    if iters.size == 0:
+        raise ValueError('iters is empty — run a pilot solve first')
+    n = iters.size
+    b = n if batch_size is None else int(batch_size)
+    scale = b / n
+    max_it = int(iters.max())
+    best = None
+    for p1 in range(int(iters.min()), max_it + 1):
+        u1 = int(np.ceil((iters > p1).sum() * scale * margin))
+        if u1 == 0:
+            break                      # p1 covers everything: no compaction
+        # smallest power-of-two tail whose two rounds clear u1
+        tb = 1
+        while 2 * tb < u1:
+            tb *= 2
+        if tb >= b:
+            continue                   # tail as big as the batch: pointless
+        rounds = int(np.ceil(u1 / tb))
+        cost = b * p1 + rounds * tb * (max_it - p1)
+        if best is None or cost < best[0]:
+            best = (cost, p1, tb)
+    if best is None:
+        return {'phase1_iters': None, 'tail_bucket': 1024}
+    _, p1, tb = best
+    return {'phase1_iters': p1, 'tail_bucket': tb}
+
+
+def _bucket_size(b: int) -> int:
+    """Powers of two up to 256, then multiples of 256
+    (``batch.py:214-225``)."""
+    if b <= 256:
+        n = 1
+        while n < b:
+            n *= 2
+        return n
+    return -(-b // 256) * 256
+
+
+def _bucket_target(b: int, mesh=None) -> int:
+    """Bucket size for a batch (``batch.py:228-235``); one device, so no
+    mesh rounding."""
+    if mesh is not None:
+        raise NotImplementedError('mesh is not ported yet (ROADMAP A13)')
+    return _bucket_size(b)
+
+
+def _pad_lead(a, pad: int, b_orig: int):
+    """Pad a batch-leading array by repeating row 0 (``batch.py:238-246``);
+    scalars, ``None`` and arrays whose leading axis is not the batch pass
+    through."""
+    if a is None or np.ndim(a) == 0 or np.shape(a)[0] != b_orig:
+        return a
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, a[:1].expand((pad,) + tuple(a.shape[1:]))])
+    a = np.asarray(a)
+    return np.concatenate([a, np.repeat(a[:1], pad, axis=0)], axis=0)
+
+
+def _pad_args_to_bucket(mesh, stamps, bkgs, fluxes=None, x0=None, obj=None,
+                        beta0=None, lr0=None, sat_level=None, psf=None):
+    """Pad every batch-leading argument up to the bucket size
+    (``batch.py:249-263``); returns the padded arguments and the original
+    batch size."""
+    b = int(np.shape(stamps)[0])
+    pad = _bucket_target(b, mesh) - b
+    if pad:
+        stamps, bkgs, fluxes, x0, obj, beta0, lr0, sat_level = (
+            _pad_lead(a, pad, b)
+            for a in (stamps, bkgs, fluxes, x0, obj, beta0, lr0, sat_level))
+        if psf is not None and np.ndim(psf) == 3:
+            psf = _pad_lead(psf, pad, b)
+    return (stamps, bkgs, fluxes, x0, obj, beta0, lr0, sat_level, psf), b
+
+
+def _unpad(res: SGPResult, n: int) -> SGPResult:
+    """Slice bucket padding off every result field (``batch.py:397-402``)."""
+    return SGPResult(*(a[:n] for a in res))
+
+
+def restore_stamps(stamps, psf, bkgs, cfg: SGPConfig, *, fluxes=None,
+                   x0=None, obj=None, beta0=1.0, lr0=1e-3, sat_level=0.0,
+                   mesh=None, batch_axis: str = 'batch',
+                   bucket: bool = False,
+                   phase1_iters: Optional[int] = None,
+                   tail_bucket: int = 1024,
+                   flatten: bool = False,
+                   device='cpu') -> SGPResult:
+    """Restore a batch of stamps that share one PSF
+    (``batch.py:266-394``).
+
+    Args:
+      stamps: (B, H, W) observed cutouts, numpy or torch.
+      psf: (H, W) shared PSF. Per-stamp (B, H, W) PSFs are not ported.
+      bkgs: scalar, (B,) or (B, H, W) background levels.
+      cfg: solver configuration.
+      bucket: pad the batch to a standard bucket size (repeating the first
+        stamp); the padding is sliced off the result.
+      phase1_iters, tail_bucket: convergence compaction for stop rules 2-4
+        (``_batched_solve_two_phase``); same per-lane schedules.
+      flatten: ravel each stamp to a row of the dense operator.
+      device: where numpy inputs go; a torch ``stamps`` computes on its own
+        device and the other inputs follow it.
+
+    Returns a batched SGPResult (leading axis B on every field).
+    """
+    if cfg.has_flux and fluxes is None:
+        raise ValueError(
+            'cfg.has_flux=True but fluxes=None: the flux-conserving '
+            'projection would target sum(x)=0 and every reconstruction '
+            'would be identically zero. Pass per-stamp fluxes (e.g. the '
+            'background-subtracted sums) or use a config with '
+            'has_flux=False.')
+    if cfg.errflag and obj is None:
+        raise ValueError('cfg.errflag=True but obj=None: the relative-'
+                         'error series needs the ground truth. Pass obj '
+                         'or use a config with errflag=False.')
+    if cfg.has_sat_level and np.ndim(sat_level) == 0 \
+            and float(sat_level) <= 0:
+        raise ValueError(
+            f'cfg.has_sat_level=True with sat_level={sat_level}: the '
+            f'saturation cap would clamp every pixel to ~0. Pass the CCD '
+            f'saturation level or use a config with has_sat_level=False.')
+    if mesh is not None:
+        raise NotImplementedError('mesh is not ported yet (ROADMAP A13)')
+    if np.ndim(psf) == 3:
+        raise NotImplementedError('per-stamp PSFs are not ported yet '
+                                  '(ROADMAP A7)')
+    if cfg.stable_sums == 'auto':
+        # batches default to plain sums (batch.py:322-329)
+        cfg = cfg.replace(stable_sums=False)
+    if isinstance(stamps, torch.Tensor):
+        device = stamps.device
+    device = torch.device(device)
+    b_orig = int(np.shape(stamps)[0])
+    if bucket:
+        ((stamps, bkgs, fluxes, x0, obj, beta0, lr0, sat_level, psf),
+         b_orig) = _pad_args_to_bucket(mesh, stamps, bkgs, fluxes, x0, obj,
+                                       beta0, lr0, sat_level, psf)
+    pad = int(np.shape(stamps)[0]) - b_orig
+
+    (stamps, psf, bkgs, fluxes, x0, obj, beta0, lr0, sat) = _prep(
+        stamps, psf, bkgs, fluxes, x0, obj, beta0, lr0, sat_level,
+        cfg.torch_dtype, device)
+
+    img_shape = tuple(stamps.shape[1:])
+    if flatten:
+        # raveled (B, H*W) rows: the dense operator is one matrix product
+        # over the batch (batch.py:343-360)
+        if cfg.operator not in ('auto', 'matmul', 'matmul_flat',
+                                'matmul_split'):
+            raise ValueError('flatten requires the dense matmul operator')
+        if cfg.operator != 'matmul_split':
+            cfg = cfg.replace(operator='matmul_flat')
+        stamps, bkgs, x0, obj = (a.reshape(a.shape[0], -1)
+                                 for a in (stamps, bkgs, x0, obj))
+
+    two_phase = (phase1_iters is not None
+                 and cfg.stop_criterion not in (0, 1)
+                 and phase1_iters < cfg.max_iter
+                 and int(stamps.shape[0]) > tail_bucket)
+    if two_phase:
+        res = _batched_solve_two_phase(stamps, psf, bkgs, x0, fluxes, obj,
+                                       beta0, lr0, sat, cfg, phase1_iters,
+                                       tail_bucket)
+    else:
+        res = solve(stamps, psf, bkgs, x0, fluxes, obj, beta0, lr0, sat, cfg)
+    if pad:
+        res = _unpad(res, b_orig)
+    if flatten:
+        res = res._replace(x=res.x.reshape((res.x.shape[0],) + img_shape))
+    return res
