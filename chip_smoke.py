@@ -6,7 +6,9 @@
 Phases, one line of output each (or a few):
   1. environment: torch, CUDA, nvcc, the card's name and power limit; TF32
      off for matrix products and convolutions;
-  2. build: nvcc compiles ``tpu_sgp_torch/csrc/flux_projection.cu``;
+  2. build: nvcc compiles ``tpu_sgp_torch/csrc/flux_projection.cu`` and
+     ``tpu_sgp_torch/csrc/stamp_solver.cu`` side by side; their ptxas
+     reports (registers, spills);
   3. the projection kernel against its plain PyTorch version on the same
      CUDA tensors, float32 and float64, with and without saturation, at the
      main path's (12288, 961) and at a ragged (7, 256); their times;
@@ -14,7 +16,14 @@ Phases, one line of output each (or a few):
      ``restore_stamps(..., flatten=True)`` with the bench configuration and
      ``projection_method='pallas'``; the kernel's launch count in that run;
   5. the same solve at B=256 on the card and on the CPU (plain projection),
-     float64 lane for lane, float32 as distributions.
+     float64 lane for lane, float32 as distributions;
+  6. the whole-solver kernel against its plain PyTorch version on the card,
+     B=256 main-path stamps: float64 lane for lane, float32 stop rule 3 as
+     distributions, float32 stop rule 1 (max_iter=20) lane by lane;
+  7. the whole-solver path at full width: ``solve_stamps_pallas`` on the
+     same 12288 stamps as phase 4, one launch a call, its iterations against
+     phase 4's; the kernel alone and its plain version timed, and held
+     against each other at this shape.
 
 Then a JSON line of the kernels, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -23,6 +32,7 @@ exits non-zero and prints no result. It exits non-zero without a GPU.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +51,25 @@ COMPACTION = dict(phase1_iters=26, tail_bucket=2048)
 # so a sign census can differ by one section at the last step
 KERNEL_TOL = {'float32': 1e-5, 'float64': 1e-10}
 FLUX_RTOL = {'float32': 1e-4, 'float64': 1e-9}
+LIBRARIES = ('flux_projection', 'stamp_solver')
+K2_B = 256
+# whole-solver kernel against its plain version, float32, per-lane
+# max|dx|/max|x|. Late iterations take their BB steplength from sums that
+# cancel, so float32 rounding moves a few lanes' paths far more than the
+# rest (see PERF.md). Stop rule 1 at max_iter=20 (phase 6), every lane
+# 20 iterations:
+K2_F32_REL = {'median': 2e-4, 'p95': 2e-3, 'max': 5e-3}
+# Stop rule 3 at full width (phase 7), where a lane may also stop some
+# iterations earlier or later on one side (the iteration counts are held
+# as distributions), so x is held over all lanes by median and 95th
+# percentile, and by its max on the lanes of equal iterations; about twice
+# the readings on the H100 (PERF.md):
+K2_FULL_REL = {'median': 1e-3, 'p95': 2e-2}
+K2_FULL_REL_SAME = {'median': 5e-4, 'p95': 6e-3, 'max': 7e-2}
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 FLOP/s outside
+# the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -64,6 +93,61 @@ def projection_case(torch, rows: int, n: int, dtype, has_sat: bool,
     cap = rng.uniform(1.5, 3.0, rows) * b / n
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()
     return t(b), t(c), t(dia), t(cap) if has_sat else torch.zeros_like(t(b))
+
+
+def bound(bytes_moved: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the float32 operations over the float32 peak."""
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_FLOP_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by='bytes' if t_bytes >= t_ops else 'operations')
+
+
+def ptxas_summary(log: str) -> str:
+    """Registers, spills and static shared memory of every kernel
+    instantiation in a ptxas report, as
+    ``name<type,threads,...> R regs spill S/L B smem M B``."""
+    out, name, spill = [], None, ''
+    for ln in log.splitlines():
+        m = re.search(r"(solve_stamps_kernel|project_rows_kernel)I([fd])"
+                      r"((?:Li\d+E)*)", ln)
+        if 'Compiling entry function' in ln and m:
+            args = ','.join([m[2]] + re.findall(r'Li(\d+)E', m[3]))
+            name = f'{m[1]}<{args}>'
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      ln)
+        if m:
+            spill = f'spill {m[1]}/{m[2]} B'
+            continue
+        m = re.search(r'Used (\d+) registers.*?(\d+) bytes smem', ln)
+        if m and name:
+            out.append(f'{name} {m[1]} regs {spill} smem {m[2]} B')
+            name = None
+    return '; '.join(out)
+
+
+def phase_build() -> None:
+    """Phase 2: one nvcc for each source, all started together. Each
+    library's time is its own nvcc's wall, overlapping the other's."""
+    from concurrent.futures import ThreadPoolExecutor
+    from tpu_sgp_torch.kernels import _build
+
+    def one(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        return lib, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        built = list(pool.map(one, LIBRARIES))
+    total = time.perf_counter() - t0
+    for name, (lib, secs) in zip(LIBRARIES, built):
+        print(f'build: {lib.name} in {secs:.2f} s (side by side, all '
+              f'{total:.2f} s)')
+        log = lib.with_name(lib.name + '.log').read_text()
+        print(f'ptxas {name}: {ptxas_summary(log)}')
 
 
 def time_ms(torch, fn, reps: int = 20) -> float:
@@ -118,9 +202,16 @@ def phase_kernel(torch, device) -> dict:
     ms = time_ms(torch, lambda: project_rows(b, c, dia, cap, steps, True))
     plain_ms = time_ms(torch, lambda: project_rows_plain(b, c, dia, cap,
                                                          steps, True))
+    # read b, c, dia, cap once, write x once; per pixel and section point
+    # an add, a multiply, a max, a min and the sum's add, and about 8
+    # operations for the bracket and the final evaluation
+    k1_bound = bound((3 * MAIN_B * N_PIX + 2 * MAIN_B) * 4,
+                     MAIN_B * N_PIX * (steps * 7 * 5 + 8))
     print(f'kernel time ({MAIN_B}, {N_PIX}) float32 has_sat=True: '
-          f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-    return dict(max_abs_err=main_err, ms=ms, plain_ms=plain_ms)
+          f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+          f'{k1_bound["bound_ms"]:.4f} ms ({k1_bound["bound_by"]})')
+    return dict(max_abs_err=main_err, ms=ms, plain_ms=plain_ms, **k1_bound,
+                library_ms=None)
 
 
 def main_path_inputs(b: int):
@@ -157,7 +248,7 @@ def check_restoration(torch, res, inputs, device) -> None:
     check(worst <= limit, 'every stamp conserves its flux')
 
 
-def phase_main_path(torch, card: str) -> int:
+def phase_main_path(torch, card: str) -> tuple:
     """Phase 4: the main path at full size, after one warm-up run. The
     kernel's launch count is that of the first timed run; the wall is the
     median of three timed runs."""
@@ -182,7 +273,7 @@ def phase_main_path(torch, card: str) -> int:
           f'(runs {", ".join(f"{w:.4f}" for w in walls)}) '
           f'stamps/s={MAIN_B / wall:.1f} iters median={np.median(iters):g} '
           f'max={iters.max()} kernel launches={launches} [{card}]')
-    return launches
+    return launches, wall, iters
 
 
 def phase_card_vs_cpu(torch) -> None:
@@ -221,6 +312,157 @@ def phase_card_vs_cpu(torch) -> None:
             check(diff.mean() <= 1.0, 'float32: mean |diters| <= 1')
 
 
+def phase_k2_vs_plain(torch) -> None:
+    """Phase 6: the whole-solver kernel against its plain version on the
+    same CUDA tensors, B=256 main-path stamps, bench configuration.
+
+    float64: equal per-lane iterations and x to 1e-7 relative. float32,
+    stop rule 3: equal medians, mean |diters| <= 1 (see phase 5). float32,
+    stop rule 1 at max_iter=20, where every lane runs 20 iterations:
+    per-lane max|dx|/max|x| within ``K2_F32_REL``."""
+    from tpu_sgp_torch import SGPConfig
+    from tpu_sgp_torch.experimental.pallas_batch import stamp_rows
+    from tpu_sgp_torch.kernels.stamp_solver import solve_rows, solve_rows_plain
+    inputs = main_path_inputs(K2_B)
+    fluxes = inputs[3]
+    for label, over in (('float64 stop 3', dict(dtype='float64')),
+                        ('float32 stop 3', {}),
+                        ('float32 stop 1 max_iter=20',
+                         dict(stop_criterion=1, max_iter=20))):
+        cfg = SGPConfig(**{**BENCH_CFG, **over})
+        args = stamp_rows(*inputs, SAT_LEVEL, cfg.torch_dtype, 'cuda')
+        x, it = solve_rows(*args, cfg)
+        xp, ip = solve_rows_plain(*args, cfg)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(x).all()), f'{label}: finite kernel x')
+        flux = float(np.abs(x.double().sum(1).cpu().numpy() / fluxes
+                            - 1).max())
+        check(flux <= FLUX_RTOL[cfg.dtype], f'{label}: kernel conserves flux')
+        it, ip = it.cpu().numpy().astype(int), ip.cpu().numpy().astype(int)
+        diff = np.abs(it - ip)
+        rel = ((x - xp).abs().amax(1) / xp.abs().amax(1)).cpu().numpy()
+        print(f'K2 kernel vs plain B={K2_B} {label}: iters median '
+              f'{np.median(it):g} vs {np.median(ip):g}, max {it.max()} vs '
+              f'{ip.max()}, mean |diters|={diff.mean():.4f}, per-lane '
+              f'max|dx|/max|x| median {np.median(rel):.3e} p95 '
+              f'{np.percentile(rel, 95):.3e} max {rel.max():.3e}, flux rel '
+              f'err={flux:.3e}')
+        if cfg.dtype == 'float64':
+            check(diff.max() == 0, 'K2 float64: equal per-lane iterations')
+            check(rel.max() <= 1e-7, 'K2 float64: x agrees to 1e-7')
+        elif cfg.stop_criterion == 3:
+            check(np.median(it) == np.median(ip),
+                  'K2 float32: median iterations equal')
+            check(diff.mean() <= 1.0, 'K2 float32: mean |diters| <= 1')
+        else:
+            check(np.median(rel) <= K2_F32_REL['median']
+                  and np.percentile(rel, 95) <= K2_F32_REL['p95']
+                  and rel.max() <= K2_F32_REL['max'],
+                  f'K2 float32 stop rule 1: x within {K2_F32_REL}')
+
+
+def phase_k2_full(torch, card: str, unfused_wall: float,
+                  unfused_iters) -> dict:
+    """Phase 7: ``solve_stamps_pallas`` at full width on phase 4's inputs,
+    after one warm-up call; the wall is the median of three calls, each
+    ending in a synchronize, with the kernel's launches counted from 0 in
+    each. Then the kernel alone and its plain version, CUDA events, on the
+    same operands; their last results are held against each other with
+    phase 6's stop-rule-3 limits on the iterations and ``K2_FULL_REL``
+    and ``K2_FULL_REL_SAME`` on x, and give the kernel's max_abs_err."""
+    from tpu_sgp_torch import SGPConfig
+    from tpu_sgp_torch.experimental.pallas_batch import (solve_stamps_pallas,
+                                                         stamp_rows)
+    from tpu_sgp_torch.kernels.stamp_solver import solve_rows, solve_rows_plain
+    from tpu_sgp_torch.projection.flux_projection import bracket_bits
+    inputs = main_path_inputs(MAIN_B)
+    stamps, psf, bkgs, fluxes = inputs
+    cfg = SGPConfig(**BENCH_CFG)
+
+    def run():
+        out = solve_stamps_pallas(stamps, psf, bkgs, fluxes, SAT_LEVEL, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    run()                                   # warm-up
+    walls, counts = [], []
+    for _ in range(3):
+        solve_rows.launches = 0
+        t0 = time.perf_counter()
+        x, iters = run()
+        walls.append(time.perf_counter() - t0)
+        counts.append(solve_rows.launches)
+    check(counts == [1, 1, 1], 'one whole-solver launch per call')
+    check(x.is_cuda and tuple(x.shape) == stamps.shape,
+          'K2 x lies on the card in the stamps\' shape')
+    check(bool(torch.isfinite(x).all()), 'K2 x is finite')
+    flux = float(np.abs(x.double().sum((1, 2)).cpu().numpy() / fluxes
+                        - 1).max())
+    check(flux <= FLUX_RTOL['float32'], 'K2: every stamp conserves its flux')
+    it = iters.cpu().numpy().astype(int)
+    diff = np.abs(it - np.asarray(unfused_iters, dtype=int))
+    wall = float(np.median(walls))
+    print(f'K2 path B={MAIN_B} float32 solve_stamps_pallas: wall median='
+          f'{wall:.4f} s (runs {", ".join(f"{w:.4f}" for w in walls)}) '
+          f'stamps/s={MAIN_B / wall:.1f} iters median={np.median(it):g} '
+          f'max={it.max()} launches per call={counts} flux rel err='
+          f'{flux:.3e} [{card}]')
+    print(f'K2 vs unfused path B={MAIN_B}: iters median {np.median(it):g} '
+          f'vs {np.median(unfused_iters):g}, mean |diters|='
+          f'{diff.mean():.4f}, |diters| histogram '
+          f'{np.bincount(diff).tolist()}; unfused wall {unfused_wall:.4f} s')
+    check(np.median(it) == np.median(unfused_iters),
+          'K2 and the unfused path: median iterations equal')
+    check(diff.mean() <= 1.0, 'K2 and the unfused path: mean |diters| <= 1')
+
+    args = stamp_rows(*inputs, SAT_LEVEL, torch.float32, 'cuda')
+    out = {}
+    ms = time_ms(torch, lambda: out.update(kernel=solve_rows(*args, cfg)),
+                 reps=5)
+    plain_ms = time_ms(
+        torch, lambda: out.update(plain=solve_rows_plain(*args, cfg)), reps=1)
+    (xk, ik), (xp, ip) = out['kernel'], out['plain']
+    ik, ip = ik.cpu().numpy().astype(int), ip.cpu().numpy().astype(int)
+    diff = np.abs(ik - ip)
+    rel = ((xk - xp).abs().amax(1) / xp.abs().amax(1)).cpu().numpy()
+    same = rel[diff == 0]
+    max_abs = float((xk - xp).abs().max())
+    print(f'K2 kernel vs plain B={MAIN_B} float32 stop 3: iters median '
+          f'{np.median(ik):g} vs {np.median(ip):g}, max {ik.max()} vs '
+          f'{ip.max()}, mean |diters|={diff.mean():.4f}, |diters| histogram '
+          f'{np.bincount(diff).tolist()}, per-lane max|dx|/max|x| median '
+          f'{np.median(rel):.3e} p95 {np.percentile(rel, 95):.3e} max '
+          f'{rel.max():.3e} (lanes of equal iterations: median '
+          f'{np.median(same):.3e} p95 {np.percentile(same, 95):.3e} max '
+          f'{same.max():.3e}), max|dx|={max_abs:.4f}')
+    check(bool(torch.isfinite(xk).all()), 'K2 full width: finite kernel x')
+    check(np.median(ik) == np.median(ip),
+          'K2 full width: median iterations equal to the plain version\'s')
+    check(diff.mean() <= 1.0, 'K2 full width: mean |diters| <= 1')
+    check(np.median(rel) <= K2_FULL_REL['median']
+          and np.percentile(rel, 95) <= K2_FULL_REL['p95'],
+          f'K2 full width: x within {K2_FULL_REL} of the plain version')
+    check(np.median(same) <= K2_FULL_REL_SAME['median']
+          and np.percentile(same, 95) <= K2_FULL_REL_SAME['p95']
+          and same.max() <= K2_FULL_REL_SAME['max'],
+          f'K2 full width, lanes of equal iterations: x within '
+          f'{K2_FULL_REL_SAME} of the plain version')
+    # this run's work: each lane applies the 961-tap operator 3 + 2 * iters
+    # times (N^2 multiply-adds of 2 operations each) and projects 1 + iters
+    # times (per bisection step and pixel an add, a divide, a max, a min and
+    # the sum's add, and about 8 operations around the bisection); read the
+    # stamps, backgrounds, fluxes, levels and taps once, write x and iters
+    n = N_PIX
+    ops = float(((3 + 2 * it) * 2 * n * n
+                 + (1 + it) * (bracket_bits(torch.float32) * 5 + 8) * n).sum())
+    k2_bound = bound((3 * MAIN_B * n + 3 * MAIN_B + n) * 4, ops)
+    print(f'K2 kernel time ({MAIN_B}, {n}) float32: kernel {ms:.4f} ms, '
+          f'plain {plain_ms:.4f} ms, bound {k2_bound["bound_ms"]:.4f} ms '
+          f'({k2_bound["bound_by"]}, {ops / 1e12:.4f} TFLOP)')
+    return dict(launches=counts[0], max_abs_err=max_abs, ms=ms,
+                plain_ms=plain_ms, **k2_bound, library_ms=None)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -239,25 +481,22 @@ def main() -> int:
           f'cuda {torch.version.cuda} nvcc "{nvcc_version}" card "{card}" '
           f'devices={torch.cuda.device_count()}')
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib = _build.build('flux_projection')
-    print(f'build: {lib.name} in {time.perf_counter() - t0:.2f} s')
-    log = lib.with_name(lib.name + '.log').read_text().strip()
-    if log:
-        print('ptxas: ' + ' | '.join(ln.strip() for ln in log.splitlines()
-                                     if 'registers' in ln or 'spill' in ln))
-
-    # 3-5
+    # 2-7
+    phase_build()
     kernel = phase_kernel(torch, 'cuda')
-    launches = phase_main_path(torch, card)
+    launches, unfused_wall, unfused_iters = phase_main_path(torch, card)
     phase_card_vs_cpu(torch)
+    phase_k2_vs_plain(torch)
+    k2 = phase_k2_full(torch, card, unfused_wall, unfused_iters)
 
     print(json.dumps({'kernels': [{
         'name': 'flux_projection', 'route': 'cuda',
         'source': 'tpu_sgp_torch/csrc/flux_projection.cu',
         'replaces': 'tpu_sgp/experimental/pallas_projection.py:40',
-        'launches': launches, **kernel}]}))
+        'launches': launches, **kernel}, {
+        'name': 'stamp_solver', 'route': 'cuda',
+        'source': 'tpu_sgp_torch/csrc/stamp_solver.cu',
+        'replaces': 'tpu_sgp/experimental/pallas_batch.py:57', **k2}]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

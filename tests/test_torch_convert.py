@@ -82,7 +82,7 @@ def test_jax_state_resumes_in_the_port():
 
     res, _ = tsgp.resume_from_state(flat, psf, bkgs, zeros, fluxes, zeros,
                                     ones, 1e-3 * ones, 65000.0 * ones, state,
-                                    tsgp.SGPConfig(**kw))
+                                    tsgp.SGPConfig(**kw), device='cpu')
     np.testing.assert_array_equal(res.iters.numpy(), np.asarray(full.iters))
     want = np.asarray(full.x)
     rel = np.abs(res.x.numpy() - want).max(1) / np.abs(want).max(1)
@@ -94,11 +94,12 @@ def test_jax_state_resumes_in_the_port():
 def test_state_from_numpy_fills_fields_older_checkpoints_lack():
     fields = {k: np.zeros(3) for k in tsgp.SGPState._fields
               if k not in ('lam_dual', 'dlam_dual')}
-    state = state_from_numpy(fields)
+    state = state_from_numpy(fields, device='cpu')
     assert torch.isnan(state.lam_dual).all()
     assert torch.isinf(state.dlam_dual).all()
     with pytest.raises(KeyError, match='x_prev'):
-        state_from_numpy({k: v for k, v in fields.items() if k != 'x_prev'})
+        state_from_numpy({k: v for k, v in fields.items() if k != 'x_prev'},
+                         device='cpu')
 
 
 @pytest.mark.parametrize('n,size,seed', [(5, 31, 42), (3, 16, 7)])
@@ -110,7 +111,9 @@ def test_synthetic_star_stamps_bit_equal(n, size, seed):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, tpu_sgp_torch, tpu_sgp_torch.convert; "
+    code = ("import sys, tpu_sgp_torch, tpu_sgp_torch.convert, "
+            "tpu_sgp_torch.experimental.pallas_batch, "
+            "tpu_sgp_torch.kernels.stamp_solver; "
             "sys.exit('jax' in sys.modules or any("
             "m == 'tpu_sgp' or m.startswith('tpu_sgp.') "
             "for m in sys.modules))")

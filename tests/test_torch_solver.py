@@ -39,7 +39,7 @@ def _both(stamps, psf, bkgs, fluxes, **kw):
     args = dict(fluxes=fluxes, sat_level=65000.0, flatten=True, **kw)
     want = jbatch.restore_stamps(stamps, psf, bkgs, JaxConfig(**cfg), **args)
     got = tsgp.restore_stamps(stamps, psf, bkgs, tsgp.SGPConfig(**cfg),
-                              **args)
+                              device='cpu', **args)
     return got, want
 
 
@@ -82,12 +82,12 @@ def test_bucketed_and_unflattened_batches():
     stamps, psf, bkgs, fluxes = _stamps(b=5)
     cfg = tsgp.SGPConfig(**MAIN)
     flat = tsgp.restore_stamps(stamps, psf, bkgs, cfg, fluxes=fluxes,
-                               sat_level=65000.0, flatten=True)
+                               sat_level=65000.0, flatten=True, device='cpu')
     bucketed = tsgp.restore_stamps(stamps, psf, bkgs, cfg, fluxes=fluxes,
                                    sat_level=65000.0, flatten=True,
-                                   bucket=True)
+                                   bucket=True, device='cpu')
     image = tsgp.restore_stamps(stamps, psf, bkgs, cfg, fluxes=fluxes,
-                                sat_level=65000.0)
+                                sat_level=65000.0, device='cpu')
     for res in (bucketed, image):
         assert res.x.shape == (5, 16, 16)
         np.testing.assert_array_equal(res.iters.numpy(), flat.iters.numpy())
@@ -127,7 +127,8 @@ def test_solver_branches_match_jax(name):
                       1e-3, 65000.0, JaxConfig(**cfg))
     t = torch.as_tensor
     got = tsgp.solve(t(stamps), t(psf), t(bkgs), t(x0[None]), t(fluxes),
-                     t(obj[None]), 1.0, 1e-3, 65000.0, tsgp.SGPConfig(**cfg))
+                     t(obj[None]), 1.0, 1e-3, 65000.0, tsgp.SGPConfig(**cfg),
+                     device='cpu')
     assert int(got.iters[0]) == int(want.iters)
     assert _rel(got.x.numpy(), np.asarray(want.x)[None]) <= 1e-9
     np.testing.assert_allclose(got.fv.numpy()[0], float(want.fv), rtol=1e-9)
@@ -145,28 +146,30 @@ def test_restore_stamps_argument_checks():
     stamps, psf, bkgs, fluxes = _stamps(b=4)
     cfg = tsgp.SGPConfig(**dict(MAIN, max_iter=5))
     with pytest.raises(ValueError, match='has_flux'):
-        tsgp.restore_stamps(stamps, psf, bkgs, cfg)
+        tsgp.restore_stamps(stamps, psf, bkgs, cfg, device='cpu')
     with pytest.raises(ValueError, match='sat_level'):
         tsgp.restore_stamps(stamps, psf, bkgs, cfg, fluxes=fluxes,
-                            sat_level=0.0)
+                            sat_level=0.0, device='cpu')
     with pytest.raises(ValueError, match='errflag'):
         tsgp.restore_stamps(stamps, psf, bkgs, cfg.replace(errflag=True),
-                            fluxes=fluxes, sat_level=65000.0)
+                            fluxes=fluxes, sat_level=65000.0, device='cpu')
     with pytest.raises(ValueError, match='dense matmul'):
         tsgp.restore_stamps(stamps, psf, bkgs, cfg.replace(operator='otf'),
-                            fluxes=fluxes, sat_level=65000.0, flatten=True)
+                            fluxes=fluxes, sat_level=65000.0, flatten=True,
+                            device='cpu')
     for bad, item in ((dict(divergence='beta'), 'A9'),
                       (dict(projection_method='bisect'), 'A5'),
                       (dict(axis_names=('y', 'x')), 'A13')):
         with pytest.raises(NotImplementedError, match=item):
             tsgp.restore_stamps(stamps, psf, bkgs, cfg.replace(**bad),
-                                fluxes=fluxes, sat_level=65000.0)
+                                fluxes=fluxes, sat_level=65000.0, device='cpu')
     with pytest.raises(NotImplementedError, match='A13'):
         tsgp.restore_stamps(stamps, psf, bkgs, cfg, fluxes=fluxes,
-                            sat_level=65000.0, mesh=object())
+                            sat_level=65000.0, mesh=object(),
+                            device='cpu')
     with pytest.raises(NotImplementedError, match='per-stamp'):
         tsgp.restore_stamps(stamps, np.stack([psf] * 4), bkgs, cfg,
-                            fluxes=fluxes, sat_level=65000.0)
+                            fluxes=fluxes, sat_level=65000.0, device='cpu')
 
 
 def test_numpy_inputs_follow_device_and_tensors_stay():

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .config import SGPConfig
+from .device import resolve_device
 from .solvers.sgp import SGPState
 
 
@@ -27,14 +28,16 @@ def config_from_jax(fields: dict) -> SGPConfig:
     return SGPConfig(**fields)
 
 
-def state_from_numpy(arrays: dict, device='cpu',
+def state_from_numpy(arrays: dict, device=None,
                      dtype: torch.dtype = torch.float64) -> SGPState:
     """An ``SGPState`` from the field name -> numpy array layout of
     ``checkpoint.save_state_npz`` (``checkpoint.py:48-50``), batched: every
-    field has a leading B axis. Floating fields become ``dtype``; the flags
+    field has a leading B axis, on ``device`` (the card when None).
+    Floating fields become ``dtype``; the flags
     stay bool and the iteration counter int32. ``lam_dual`` and
     ``dlam_dual``, absent from older checkpoints, default as
     ``checkpoint.py:27-32`` defaults them."""
+    device = resolve_device(device)
     arrays = dict(arrays)
     fv = np.asarray(arrays['fv'])
     arrays.setdefault('lam_dual', np.full(fv.shape, np.nan))

@@ -33,39 +33,17 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "reduce.cuh"
+
 namespace {
+
+using tpu_sgp::warp_max;
+using tpu_sgp::warp_min;
+using tpu_sgp::warp_sum;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kK = 7;  // interior section points per step
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_min(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const T o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o < v ? o : v;
-  }
-  return v;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_max(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const T o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
-  }
-  return v;
-}
 
 // A thread's pixels of one row: i = tid + j * kThreads for j < PER, with c
 // and 1/dia held in registers.

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/tpu_sgp_torch/`` at the root of the checkout (listed
-in ``.gitignore``), under a name that carries the hash of the source and
-the flags, so an edited source is rebuilt. The compiler's report
+in ``.gitignore``), under a name that carries the hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt. The compiler's report
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
 library as ``<library>.log``.
 """
@@ -43,8 +44,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = _CSRC / f'{name}.cu'
-    key = src.read_bytes() + ' '.join(NVCC_FLAGS).encode()
+    """The library's path, named by the hash of its source, the shared
+    headers under ``csrc/`` and the flags."""
+    key = (_CSRC / f'{name}.cu').read_bytes()
+    for header in sorted(_CSRC.glob('*.cuh')):
+        key += header.name.encode() + header.read_bytes()
+    key += ' '.join(NVCC_FLAGS).encode()
     return BUILD_DIR / f'lib{name}-{hashlib.sha256(key).hexdigest()[:16]}.so'
 
 

@@ -3,8 +3,8 @@
 Port of ``restore_stamps`` and its helpers (``tpu_sgp/parallel/batch.py``).
 The JAX package vmaps the single-image solver; the port's solver is
 batch-first already, so the batch is one call. Torch tensors compute where
-they lie; numpy inputs are placed on ``device`` (the CPU unless the caller
-names another). A ``mesh`` waits for multi-device support (ROADMAP A13).
+they lie; numpy inputs are placed on ``device`` (the card unless the caller
+passes ``'cpu'``). A ``mesh`` waits for multi-device support (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..config import SGPConfig
+from ..device import resolve_device
 from ..solvers.sgp import (SGPResult, SGPState, resume_from_state, solve,
                            solve_with_state)
 
@@ -184,7 +185,7 @@ def restore_stamps(stamps, psf, bkgs, cfg: SGPConfig, *, fluxes=None,
                    phase1_iters: Optional[int] = None,
                    tail_bucket: int = 1024,
                    flatten: bool = False,
-                   device='cpu') -> SGPResult:
+                   device=None) -> SGPResult:
     """Restore a batch of stamps that share one PSF
     (``batch.py:266-394``).
 
@@ -198,8 +199,9 @@ def restore_stamps(stamps, psf, bkgs, cfg: SGPConfig, *, fluxes=None,
       phase1_iters, tail_bucket: convergence compaction for stop rules 2-4
         (``_batched_solve_two_phase``); same per-lane schedules.
       flatten: ravel each stamp to a row of the dense operator.
-      device: where numpy inputs go; a torch ``stamps`` computes on its own
-        device and the other inputs follow it.
+      device: where numpy inputs go, the card when None; a torch
+        ``stamps`` computes on its own device and the other inputs follow
+        it. Without a card, a call that names no device raises.
 
     Returns a batched SGPResult (leading axis B on every field).
     """
@@ -228,9 +230,7 @@ def restore_stamps(stamps, psf, bkgs, cfg: SGPConfig, *, fluxes=None,
     if cfg.stable_sums == 'auto':
         # batches default to plain sums (batch.py:322-329)
         cfg = cfg.replace(stable_sums=False)
-    if isinstance(stamps, torch.Tensor):
-        device = stamps.device
-    device = torch.device(device)
+    device = resolve_device(device, stamps)
     b_orig = int(np.shape(stamps)[0])
     if bucket:
         ((stamps, bkgs, fluxes, x0, obj, beta0, lr0, sat_level, psf),

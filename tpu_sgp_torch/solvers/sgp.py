@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import SGPConfig
+from ..device import resolve_device
 from ..ops import divergence as dv
 from ..ops.psf_operator import make_operator
 from ..ops.reduce import gmax, gmean, gmin, gsum, gsum_ff
@@ -102,14 +103,15 @@ def _where(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor
 
 
 def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
-                cfg: SGPConfig, rstate: SGPState | None = None):
+                cfg: SGPConfig, rstate: SGPState | None = None,
+                device=None):
     """Shared implementation (``sgp.py:155-573``); with ``rstate`` the
     preamble recomputes the constants and the loop continues from the
     checkpointed state."""
     check_supported(cfg)
     dt = cfg.torch_dtype
-    gn = torch.as_tensor(gn, dtype=dt)
-    dev = gn.device
+    dev = resolve_device(device, gn)
+    gn = torch.as_tensor(gn, dtype=dt, device=dev)
     nb = gn.shape[0]
     shape = tuple(gn.shape[1:])
     gn = gn.reshape(nb, -1)
@@ -397,29 +399,30 @@ def _resume_state(rstate: SGPState, cfg: SGPConfig, series: int
 
 
 def solve(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
-          cfg: SGPConfig) -> SGPResult:
+          cfg: SGPConfig, *, device=None) -> SGPResult:
     """Run SGP on a batch of images (``sgp.py:576-583``, vmapped).
 
-    ``gn`` is (B, *image shape), a tensor that sets the device or an
-    array for the CPU; ``psf`` is the shared
+    ``gn`` is (B, *image shape): a tensor computes on its own device, an
+    array on ``device`` (the card unless the caller passes ``'cpu'``);
+    ``psf`` is the shared
     PSF; ``bkg`` is (B,) or (B, *image shape); ``flux_in``, ``beta0``,
     ``lr0`` and ``sat_level`` are (B,) or scalars; ``x0`` and ``obj`` are
     read only when ``init_recon=1`` and ``errflag`` ask for them."""
     return _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0,
-                       sat_level, cfg)[0]
+                       sat_level, cfg, device=device)[0]
 
 
 def solve_with_state(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
-                     cfg: SGPConfig):
+                     cfg: SGPConfig, *, device=None):
     """As ``solve`` but also returns the final SGPState
     (``sgp.py:586-591``)."""
     return _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0,
-                       sat_level, cfg)
+                       sat_level, cfg, device=device)
 
 
 def resume_from_state(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
-                      rstate: SGPState, cfg: SGPConfig):
+                      rstate: SGPState, cfg: SGPConfig, *, device=None):
     """Continue a checkpointed solve (``sgp.py:594-601``) with the original
     inputs; iteration continues until cfg.max_iter or the stop rule."""
     return _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0,
-                       sat_level, cfg, rstate=rstate)
+                       sat_level, cfg, rstate=rstate, device=device)
