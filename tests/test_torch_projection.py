@@ -96,7 +96,11 @@ def test_unported_methods_raise(method, item):
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.float64, 1e-10)])
 @pytest.mark.parametrize('has_sat', [False, True])
-@pytest.mark.parametrize('rows,n', [(64, 961), (7, 256), (3, 3000)])
+# one warp a row up to 1024 pixels in float32 and 512 in float64 (a
+# ragged last block of 4 rows), one block a row above: in registers up to
+# 2048, then streamed
+@pytest.mark.parametrize('rows,n', [(64, 961), (7, 256), (3, 3000), (9, 20),
+                                    (5, 32), (13, 961), (6, 1025), (4, 513)])
 def test_kernel_matches_plain_on_card(dtype, tol, has_sat, rows, n):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')

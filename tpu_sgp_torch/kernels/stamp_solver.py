@@ -12,7 +12,9 @@ The operator is the dense circulant of ``ops.psf_operator.
 build_circulant_matrix``: ``A(x) = C x`` is a circular convolution by the
 H*W taps ``k = fftshift(psf)`` and ``AT(x) = C^T x`` a circular
 correlation. The kernel takes the taps; the plain version builds C from
-them.
+them. A block has ceil(H/2) * ceil(W/4) threads, each owning a 2 x 4 patch
+of pixels, at most 1024; a stamp shape past that, or whose tap tables and
+doubled input exceed the card's shared memory, fails to launch.
 
 ``solve_rows`` launches ``csrc/stamp_solver.cu`` for CUDA tensors and calls
 ``solve_rows_plain`` for CPU tensors; a CUDA call that cannot launch
@@ -218,6 +220,8 @@ class _Params(ctypes.Structure):
 
 _ENTRY = {torch.float32: 'tpu_sgp_solve_stamps_f32',
           torch.float64: 'tpu_sgp_solve_stamps_f64'}
+_OPERATOR_ENTRY = {torch.float32: 'tpu_sgp_apply_operator_f32',
+                   torch.float64: 'tpu_sgp_apply_operator_f64'}
 
 
 @functools.cache
@@ -227,6 +231,16 @@ def _entry(dtype: torch.dtype):
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
                                            ctypes.POINTER(_Params),
                                            ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _operator_entry(dtype: torch.dtype):
+    from ._build import load_library
+    fn = getattr(load_library('stamp_solver'), _OPERATOR_ENTRY[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -296,3 +310,55 @@ def solve_rows(gn: torch.Tensor, bkg: torch.Tensor, flux: torch.Tensor,
 
 
 solve_rows.launches = 0
+
+
+def apply_operator_plain(x: torch.Tensor, taps: torch.Tensor,
+                         reps: int) -> torch.Tensor:
+    """``(AT A)^reps`` applied to every row of ``x`` (B, N), with A and AT
+    the dense circulant of the (H, W) ``taps``, as ``solve_rows_plain``
+    builds them."""
+    cmat = build_circulant_matrix(torch.fft.ifftshift(taps))
+    for _ in range(reps):
+        x = (x @ cmat.T) @ cmat
+    return x
+
+
+def apply_operator(x: torch.Tensor, taps: torch.Tensor,
+                   reps: int) -> torch.Tensor:
+    """The whole-solver kernel's operator alone: ``(AT A)^reps`` on every
+    row of ``x`` (B, N), through the same device code as ``solve_rows``'s
+    kernel, one block a row, with no more blocks an SM than the solver
+    keeps (``apply_operator.resident`` holds that count after a launch).
+    It measures the operator's share of the kernel's time; the solver never
+    calls it. CPU tensors take ``apply_operator_plain``."""
+    if x.dim() != 2 or taps.dim() != 2 or taps.numel() != x.shape[1]:
+        raise ValueError(f'x must be (B, N) and taps (H, W) with H*W = N, '
+                         f'got {tuple(x.shape)} and {tuple(taps.shape)}')
+    if x.shape[1] > MAX_PIXELS or reps < 0:
+        raise ValueError(f'unsupported N={x.shape[1]} or reps={reps}')
+    if not x.is_cuda:
+        return apply_operator_plain(x, taps, reps)
+    if x.dtype not in _OPERATOR_ENTRY or taps.dtype != x.dtype \
+            or taps.device != x.device:
+        raise TypeError(f'x and taps must be float32 or float64 on one '
+                        f'device, got {x.dtype} and {taps.dtype} on '
+                        f'{taps.device}')
+    if not (x.is_contiguous() and taps.is_contiguous()):
+        raise ValueError('x and taps must be contiguous')
+    out = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return out
+    h, w = taps.shape
+    stream = torch.cuda.current_stream(x.device)
+    resident = ctypes.c_int()
+    err = _operator_entry(x.dtype)(x.data_ptr(), taps.data_ptr(),
+                                   out.data_ptr(), x.shape[0], h, w, reps,
+                                   ctypes.byref(resident), x.device.index,
+                                   stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'operator kernel launch failed: CUDA error {err}')
+    apply_operator.resident = resident.value
+    return out
+
+
+apply_operator.resident = 0
