@@ -28,8 +28,19 @@ Phases, one line of output each (or a few):
      phase 4's; the kernel alone and its plain version timed, and held
      against each other at this shape;
   8. the whole-solver kernel's operator alone against the dense circulant
-     product, float32 and float64; its time at phase 7's count of
-     operator applications, as a share of the kernel's time.
+     product, float32 and float64; its time at phase 7's count of operator
+     applications, as a share of the kernel's time;
+  9. each plain-PyTorch projection method ('bisect', 'section', 'sort',
+     'secant', warm 'bisect') on the card against the CPU at (12288, 961),
+     float32 and float64, with and without saturation; each one's time and
+     kernel launches a call at (12288, 961) float32;
+ 10. the KL default path at full size: phase 4's stamps through
+     ``restore_stamps`` with the bench configuration exactly (default
+     projection 'bisect'), beside phase 4's 'pallas' wall;
+ 11. the beta path at full size: the JAX bench's beta configuration
+     ('section', beta0 1.005, lr0 1e-3), and the final beta distribution;
+ 12. phases 10 and 11 at B=256 on the card and on the CPU, float64 lane for
+     lane, float32 as distributions.
 
 Then a JSON line of the kernels, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -53,6 +64,20 @@ BENCH_CFG = dict(max_iter=100, stop_criterion=3, tol_convergence=1e-4,
                  has_sat_level=True, dtype='float32', divergence='kl',
                  track_discr=False, projection_method='pallas')
 COMPACTION = dict(phase1_iters=26, tail_bucket=2048)
+# bench.py:630-633 exactly: the default projection, 'bisect'
+KL_CFG = {k: v for k, v in BENCH_CFG.items() if k != 'projection_method'}
+# bench.py:215-241: the beta workload
+BETA_CFG = dict(KL_CFG, divergence='beta', adapt_beta=True, schedule_lr=True,
+                projection_method='section')
+# configuration and restore_stamps arguments of each path
+PATHS = {'pallas': (BENCH_CFG, COMPACTION),
+         'kl bisect': (KL_CFG, COMPACTION),
+         'beta section': (BETA_CFG, dict(phase1_iters=28, tail_bucket=2048,
+                                         beta0=1.005, lr0=1e-3))}
+# the plain-PyTorch projections of phase 9 ('warm' is 'bisect' warm-started)
+METHODS = ('bisect', 'section', 'sort', 'secant', 'warm')
+# phase 9: card against CPU, float64 max|dx|/max|x|
+METHOD_TOL_F64 = 1e-10
 # max|kernel - plain| / max|plain|: the two sum a row in different orders,
 # so a sign census can differ by one section at the last step
 KERNEL_TOL = {'float32': 1e-5, 'float64': 1e-10}
@@ -262,13 +287,14 @@ def main_path_inputs(b: int):
     return stamps, psf, bkgs, fluxes
 
 
-def restore(torch, inputs, device, dtype='float32'):
+def restore(torch, inputs, device, dtype='float32', path='pallas'):
     from tpu_sgp_torch import SGPConfig, restore_stamps
     stamps, psf, bkgs, fluxes = inputs
-    cfg = SGPConfig(**{**BENCH_CFG, 'dtype': dtype})
+    cfg, kw = PATHS[path]
+    cfg = SGPConfig(**{**cfg, 'dtype': dtype})
     res = restore_stamps(stamps, psf, bkgs, cfg, fluxes=fluxes,
                          sat_level=SAT_LEVEL, flatten=True, device=device,
-                         **COMPACTION)
+                         **kw)
     if res.x.is_cuda:
         torch.cuda.synchronize()
     return res
@@ -317,8 +343,9 @@ def phase_main_path(torch, card: str) -> tuple:
     return launches, wall, iters
 
 
-def phase_card_vs_cpu(torch) -> None:
-    """Phase 5: B=256 on the card (kernel) against the CPU (plain).
+def phase_card_vs_cpu(torch, path: str = 'pallas') -> None:
+    """Phase 5 (and 12 for the other paths): B=256 on the card (kernel)
+    against the CPU (plain).
 
     float64: the same per-lane iteration counts and x to 1e-7 relative
     (the port and the JAX package on the CPU agree to 5e-9 here).
@@ -327,11 +354,13 @@ def phase_card_vs_cpu(torch) -> None:
     a lane's stop by a few iterations and its x by up to about 1e-2
     relative; the JAX package against itself (flatten=True against the
     (H, W) layout, CPU) differs by up to 8 iterations on this batch. So
-    float32 compares distributions: equal medians, mean |diters| <= 1."""
+    float32 compares distributions: equal medians, mean |diters| <= 1. On
+    the beta path the final beta is held like x."""
     inputs = main_path_inputs(256)
+    label = '' if path == 'pallas' else f' {path}'
     for dtype in ('float64', 'float32'):
-        gpu = restore(torch, inputs, 'cuda', dtype)
-        cpu = restore(torch, inputs, 'cpu', dtype)
+        gpu = restore(torch, inputs, 'cuda', dtype, path)
+        cpu = restore(torch, inputs, 'cpu', dtype, path)
         check_restoration(torch, gpu, inputs, 'cuda')
         check_restoration(torch, cpu, inputs, 'cpu')
         it_g = gpu.iters.cpu().numpy().astype(int)
@@ -341,14 +370,19 @@ def phase_card_vs_cpu(torch) -> None:
         xc = cpu.x.numpy()
         rel = float((np.abs(xg - xc).max(axis=(1, 2))
                      / np.abs(xc).max(axis=(1, 2))).max())
-        print(f'card vs cpu B=256 {dtype}: iters median {np.median(it_g):g} '
-              f'vs {np.median(it_c):g}, |diters| histogram '
-              f'{np.bincount(diff).tolist()}, mean |diters|={diff.mean():.4f}'
-              f', max rel |dx|={rel:.3e}')
+        beta_rel = float((np.abs(gpu.beta.cpu().numpy() - cpu.beta.numpy())
+                          / np.abs(cpu.beta.numpy())).max())
+        print(f'card vs cpu B=256{label} {dtype}: iters median '
+              f'{np.median(it_g):g} vs {np.median(it_c):g}, |diters| '
+              f'histogram {np.bincount(diff).tolist()}, mean |diters|='
+              f'{diff.mean():.4f}, max rel |dx|={rel:.3e}'
+              + (f', max rel |dbeta|={beta_rel:.3e}' if 'beta' in path
+                 else ''))
         check(np.median(it_g) == np.median(it_c), 'median iterations equal')
         if dtype == 'float64':
             check(diff.max() == 0, 'float64: equal per-lane iterations')
             check(rel <= 1e-7, 'float64: x agrees to 1e-7')
+            check(beta_rel <= 1e-7, 'float64: beta agrees to 1e-7')
         else:
             check(diff.mean() <= 1.0, 'float32: mean |diters| <= 1')
 
@@ -571,6 +605,151 @@ def phase_operator(torch, k2_ms: float, applications: int) -> None:
           f'ms')
 
 
+def count_launches(torch, fn) -> tuple:
+    """Kernels the card ran during one call of ``fn`` (``torch.profiler``'s
+    device events, memory copies and sets left out) and the host's
+    ``cudaLaunchKernel`` calls in it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith(('Memcpy', 'Memset'))]
+    host = [e for e in prof.events() if e.name.startswith('cudaLaunchKernel')]
+    return len(device), len(host)
+
+
+def phase_methods(torch) -> None:
+    """Phase 9: each plain-PyTorch projection method on the card against
+    the same call on the CPU, at the main path's (12288, 961), float32 and
+    float64, with and without saturation (the cap leaves room for the
+    flux). float64: x within ``METHOD_TOL_F64`` of max|x|; float32: the
+    card's flux error <= 1e-4. The warm start takes the cold guided
+    secant's root moved by 1e-3 of itself as its previous root, and 1e-3 of
+    it as its previous step (a warm window that holds the root). Then each
+    method's time a call at (12288, 961) float32 with saturation (CUDA
+    events, mean of 5 after a warm-up) and the kernels it launches a call
+    (``torch.profiler``)."""
+    from tpu_sgp_torch.projection import flux_projection as fp
+
+    def call(method, b, c, dia, cap, has_sat, lam_prev=None):
+        ones = torch.ones_like(b)
+        sat = cap if has_sat else None
+        if method == 'warm':
+            return fp.project_df_bisect_warm(
+                b, c, dia, ones, sat, has_sat, lam_prev=lam_prev,
+                dlam_prev=1e-3 * lam_prev.abs())[0]
+        return fp.project(method, b, c, dia, ones, sat_level=sat,
+                          has_sat=has_sat)
+
+    def warm_root(args, has_sat):
+        lam = fp._guided_root(args[0], args[1], args[2],
+                              torch.ones_like(args[0]), args[3], has_sat,
+                              None)[1]
+        return lam * (1.0 + 1e-3)
+
+    seed = 200
+    for name in ('float32', 'float64'):
+        dtype = getattr(torch, name)
+        for has_sat in (True, False):
+            seed += 1
+            args = projection_case(torch, MAIN_B, N_PIX, dtype, has_sat,
+                                   'cuda', seed)
+            cpu_args = [a.cpu() for a in args]
+            lam_prev = warm_root(args, has_sat)
+            parts = []
+            for method in METHODS:
+                got = call(method, *args, has_sat, lam_prev)
+                want = call(method, *cpu_args, has_sat, lam_prev.cpu())
+                torch.cuda.synchronize()
+                got = got.cpu()
+                check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+                      f'{method} {name}: finite x of the input dtype')
+                rel = float((got - want).abs().max() / want.abs().max())
+                b = cpu_args[0].double()
+                flux = float(((got.double().sum(-1) - b).abs() / b).max())
+                parts.append(f'{method} {rel:.3e} / {flux:.3e}')
+                if name == 'float64':
+                    check(rel <= METHOD_TOL_F64,
+                          f'{method} float64: card agrees with the CPU')
+                check(flux <= FLUX_RTOL['float32'],
+                      f'{method} {name}: the card conserves flux')
+            print(f'methods card vs cpu ({MAIN_B}, {N_PIX}) {name} '
+                  f'has_sat={has_sat}, max|dx|/max|x| / card flux rel err: '
+                  + ', '.join(parts))
+
+    args = projection_case(torch, MAIN_B, N_PIX, torch.float32, True, 'cuda',
+                           299)
+    lam_prev = warm_root(args, True)
+    for method in METHODS:
+        fn = lambda: call(method, *args, True, lam_prev)
+        ms = time_ms(torch, fn, reps=5)
+        kernels, host = count_launches(torch, fn)
+        print(f'method time ({MAIN_B}, {N_PIX}) float32 has_sat=True '
+              f'{method}: {ms:.4f} ms a call, {kernels} kernels on the card '
+              f'({host} cudaLaunchKernel calls)')
+
+
+def profile_path(torch, path: str, inputs) -> None:
+    """One more run of ``path`` under ``torch.profiler``: its wall (slowed
+    by the profiler), the card's busy time (the device time of every
+    kernel, memory copies included) and its share of that wall, the
+    device events, and the six ATen operations that took the most device
+    time (their kernels' time, summed over their calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        restore(torch, inputs, 'cuda', path=path)
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    top = sorted((e for e in prof.key_averages()
+                  if e.key.startswith('aten::')),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    print(f'{path} path profile B={MAIN_B}: wall {wall:.4f} s (profiled), '
+          f'card busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} % of '
+          f'the wall), {len(device)} device events; most device time: '
+          + '; '.join(f'{e.key} {e.self_device_time_total / 1e3:.3f} ms '
+                      f'x{e.count}' for e in top))
+
+
+def phase_path(torch, card: str, path: str, pallas_wall: float) -> None:
+    """Phases 10 and 11: phase 4's stamps through ``restore_stamps`` on
+    ``path`` at full size, one warm-up run, then three timed runs; every
+    stamp finite and conserving its flux; the wall beside phase 4's. Then
+    one profiled run of ``path`` and, in phase 10, of phase 4's path."""
+    inputs = main_path_inputs(MAIN_B)
+    restore(torch, inputs, 'cuda', path=path)            # warm-up
+    walls = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        res = restore(torch, inputs, 'cuda', path=path)
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            check_restoration(torch, res, inputs, 'cuda')
+    wall = float(np.median(walls))
+    iters = res.iters.cpu().numpy()
+    extra = ''
+    if 'beta' in path:
+        beta = res.beta.cpu().numpy()
+        check(bool(np.isfinite(beta).all()), 'finite final beta')
+        extra = (f' final beta median={np.median(beta):.6f} '
+                 f'min={beta.min():.6f} max={beta.max():.6f}')
+    print(f'{path} path B={MAIN_B} float32: wall median={wall:.4f} s (runs '
+          f'{", ".join(f"{w:.4f}" for w in walls)}) stamps/s='
+          f'{MAIN_B / wall:.1f} iters median={np.median(iters):g} '
+          f'max={iters.max()}{extra}; pallas path wall {pallas_wall:.4f} s '
+          f'[{card}]')
+    for name in (path, 'pallas') if path == 'kl bisect' else (path,):
+        profile_path(torch, name, inputs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -598,6 +777,13 @@ def main() -> int:
     k2, applications = phase_k2_full(torch, card, unfused_wall,
                                      unfused_iters)
     phase_operator(torch, k2['ms'], applications)
+
+    # 9-12
+    phase_methods(torch)
+    for path in ('kl bisect', 'beta section'):
+        phase_path(torch, card, path, unfused_wall)
+    for path in ('kl bisect', 'beta section'):
+        phase_card_vs_cpu(torch, path)
 
     print(json.dumps({'kernels': [{
         'name': 'flux_projection', 'route': 'cuda',

@@ -91,9 +91,145 @@ def test_kl_objective_and_grad_match_jax(stable):
             rtol=1e-12, atol=1e-14)
 
 
-def test_beta_divergence_raises():
-    with pytest.raises(NotImplementedError, match='A9'):
-        tdv.beta_div()
+# generic betas, beta = 1 and 0 and their neighbourhoods (the expm1
+# switches at |t| < eps/512 and the series at |s| < 0.25), a tiny normal
+# beta whose products with d are subnormal (XLA flushes them to zero, torch
+# on the CPU does not), and beta = 2
+BETAS = [0.7, 1.005, 1.0, 1.0 + 1e-9, 1.0 - 1e-9, 0.0, 1e-9, -1e-9,
+         2.225e-308, 1e-300, 2.0, 1.3]
+
+
+def _beta_rows(seed, zeros=False):
+    """(4, 256) den and gn, gn with zero pixels when ``zeros``, and a
+    (4,) beta row per case."""
+    rng = np.random.default_rng(seed)
+    den = rng.uniform(0.5, 60.0, (4, 256))
+    gn = den * rng.uniform(0.5, 1.5, (4, 256))
+    gn[:, :8] = den[:, :8]                  # den == gn: d = 0
+    if zeros:
+        gn[:, 8:20] = 0.0
+    return den, gn
+
+
+@pytest.mark.parametrize('beta', BETAS)
+@pytest.mark.parametrize('stable', [False, True])
+def test_beta_div_matches_jax(beta, stable):
+    """beta_div with and without a hoisted log(gn), gn == 0 pixels
+    included, per row against JAX on each row, rtol 1e-12."""
+    den, gn = _beta_rows(10, zeros=True)
+    betas = np.array([beta, beta * 0.5, beta, 1.0]) if beta > 1e-200 \
+        else np.full(4, beta)
+    t = torch.as_tensor
+    got = tdv.beta_div(t(den), t(gn), t(betas), stable=stable).numpy()
+    pos = gn > 0
+    lg = np.log(np.where(pos, gn, 1.0))
+    got_log = tdv.beta_div(t(den[:, 20:]), t(gn[:, 20:]), t(betas),
+                           log_gn=t(lg[:, 20:]), stable=stable).numpy()
+    for i in range(4):
+        want = float(jdv.beta_div(jnp.asarray(den[i]), jnp.asarray(gn[i]),
+                                  betas[i], stable=stable))
+        want_log = float(jdv.beta_div(jnp.asarray(den[i, 20:]),
+                                      jnp.asarray(gn[i, 20:]), betas[i],
+                                      log_gn=jnp.asarray(lg[i, 20:]),
+                                      stable=stable))
+        np.testing.assert_allclose(got[i], want, rtol=1e-12, atol=1e-300)
+        np.testing.assert_allclose(got_log[i], want_log, rtol=1e-12,
+                                   atol=1e-300)
+        assert np.isfinite(got[i])
+
+
+@pytest.mark.parametrize('beta', BETAS)
+def test_beta_div_with_dbeta_matches_jax(beta):
+    """The fused value and d/dbeta of the solver's line search, and the
+    separate elementwise derivative beta_div_dbeta, against JAX."""
+    den, gn = _beta_rows(11)
+    betas = np.full(4, beta)
+    t = torch.as_tensor
+    fv, dsum = tdv.beta_div_with_dbeta(t(den), t(gn), t(betas),
+                                       torch.log(t(gn)))
+    delem = tdv.beta_div_dbeta(t(den), t(gn), t(betas)).numpy()
+    for i in range(4):
+        wf, wd = jdv.beta_div_with_dbeta(jnp.asarray(den[i]),
+                                         jnp.asarray(gn[i]), betas[i],
+                                         jnp.log(jnp.asarray(gn[i])))
+        np.testing.assert_allclose(fv[i].item(), float(wf), rtol=1e-12,
+                                   atol=1e-300)
+        np.testing.assert_allclose(dsum[i].item(), float(wd), rtol=1e-12,
+                                   atol=1e-12)
+        np.testing.assert_allclose(
+            delem[i], np.asarray(jdv.beta_div_dbeta(jnp.asarray(den[i]),
+                                                    jnp.asarray(gn[i]),
+                                                    betas[i])),
+            rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize('beta', [0.7, 1.0, 1.0 + 1e-9, 0.0, 2.0])
+def test_beta_grad_wrt_recon_matches_jax(beta):
+    rng = np.random.default_rng(12)
+    psf = gaussian_psf(16, 2.8)
+    gn = rng.uniform(1.0, 50.0, (3, 256))
+    den = rng.uniform(0.5, 60.0, (3, 256))
+    betas = np.array([beta, beta + 0.1, beta])
+    _, AT_j = jop.make_matmul_flat_operator(jnp.asarray(psf))
+    _, AT_t = top.make_matmul_flat_operator(torch.as_tensor(psf))
+    got = tdv.beta_grad_wrt_recon(AT_t, torch.as_tensor(den),
+                                  torch.as_tensor(gn),
+                                  torch.as_tensor(betas)).numpy()
+    for i in range(3):
+        np.testing.assert_allclose(
+            got[i], np.asarray(jdv.beta_grad_wrt_recon(
+                AT_j, jnp.asarray(den[i]), jnp.asarray(gn[i]), betas[i])),
+            rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize('beta', [0.0, 1.0, 1.3])
+def test_beta_div_value_and_special_match_jax(beta):
+    """The exact beta in {0, 1} branches and the dispatch that picks them
+    for a Python float."""
+    den, gn = _beta_rows(13)
+    got = tdv.beta_div_value(torch.as_tensor(den), torch.as_tensor(gn),
+                             beta).numpy()
+    for i in range(4):
+        want = float(jdv.beta_div_value(jnp.asarray(den[i]),
+                                        jnp.asarray(gn[i]), beta))
+        np.testing.assert_allclose(got[i], want, rtol=1e-12)
+    if beta in (0.0, 1.0):
+        np.testing.assert_array_equal(
+            got, tdv.beta_div_special(torch.as_tensor(den),
+                                      torch.as_tensor(gn), beta).numpy())
+    with pytest.raises(ValueError, match='only beta 0 or 1'):
+        tdv.beta_div_special(torch.as_tensor(den), torch.as_tensor(gn), 0.5)
+
+
+def test_e2_series_dpow_kernel_and_lr_schedule_match_jax():
+    """E2 on both sides of its |s| < 0.25 switch, the derivative kernel at
+    t = 0, tiny and subnormal, and the learning-rate schedule."""
+    s = np.concatenate([np.linspace(-3.0, 3.0, 41), [0.0, 1e-300, 0.2499,
+                                                     0.25, -0.25]])
+    np.testing.assert_allclose(
+        tdv._e2_from_expm1(torch.as_tensor(s),
+                           torch.expm1(torch.as_tensor(s))).numpy(),
+        np.asarray(jdv._e2_from_expm1(jnp.asarray(s),
+                                      jnp.expm1(jnp.asarray(s)))),
+        rtol=1e-13)
+    assert tdv._E2_COEFFS == jdv._E2_COEFFS
+    rng = np.random.default_rng(14)
+    v = rng.normal(0.0, 2.0, 50)
+    delta = rng.normal(0.0, 1.0, 50)
+    for t in (0.0, 1e-300, 2.225e-308, 1e-9, 0.3, -1.2):
+        np.testing.assert_allclose(
+            tdv._dpow_kernel(torch.tensor(t, dtype=torch.float64),
+                             torch.as_tensor(v),
+                             torch.as_tensor(delta)).numpy(),
+            np.asarray(jdv._dpow_kernel(jnp.asarray(t), jnp.asarray(v),
+                                        jnp.asarray(delta))),
+            rtol=1e-12, atol=1e-300)
+    epochs = np.arange(1.0, 40.0)
+    np.testing.assert_allclose(
+        tdv.lr_schedule(torch.full((39,), 1e-3, dtype=torch.float64), 0.1,
+                        torch.as_tensor(epochs)).numpy(),
+        np.asarray(jdv.lr_schedule(1e-3, 0.1, jnp.asarray(epochs))),
+        rtol=1e-14)
 
 
 @pytest.mark.parametrize('n', [961, 256, 1, 1000])

@@ -23,10 +23,8 @@ DEFAULT_PARAMS = (1000, 1e-4, 0.4, 1e-5, 1e5, 1e1, 3, 0.5, 1)
 class SGPConfig:
     """Static solver configuration (``tpu_sgp/config.py:31-195``).
 
-    Field meanings are those of the JAX package; the port implements the
-    subset its docstrings name and raises ``NotImplementedError`` for the
-    rest (``divergence='beta'``, projection methods other than
-    ``'pallas'``, mesh axes, ``save``).
+    Field meanings are those of the JAX package; the port raises
+    ``NotImplementedError`` for mesh axes and ``save``.
     """
 
     # Iteration / stopping

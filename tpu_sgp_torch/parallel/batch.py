@@ -1,6 +1,7 @@
 """Batched stamp restoration on one device.
 
-Port of ``restore_stamps`` and its helpers (``tpu_sgp/parallel/batch.py``).
+Port of ``restore_stamps``, its helpers and the beta-init search
+(``tpu_sgp/parallel/batch.py``).
 The JAX package vmaps the single-image solver; the port's solver is
 batch-first already, so the batch is one call. Torch tensors compute where
 they lie; numpy inputs are placed on ``device`` (the card unless the caller
@@ -269,3 +270,88 @@ def restore_stamps(stamps, psf, bkgs, cfg: SGPConfig, *, fluxes=None,
     if flatten:
         res = res._replace(x=res.x.reshape((res.x.shape[0],) + img_shape))
     return res
+
+
+BETA_SEEDS = (0, 42, 951, 93, 810)
+
+
+def default_beta_candidates() -> np.ndarray:
+    """The reference's five seeded N(1, 0.05) beta-init draws
+    (``batch.py:405-414``)."""
+    return np.array([np.random.RandomState(s).normal(loc=1.0, scale=0.05)
+                     for s in BETA_SEEDS])
+
+
+def _host(a):
+    """A numpy view of an array or tensor (None stays None)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return None if a is None else np.asarray(a)
+
+
+def beta_init_search(stamps, psf, bkgs, cfg: SGPConfig, *, fluxes=None,
+                     beta_candidates=None, lr0=1e-3, sat_level=0.0,
+                     mesh=None, scorer='catalog',
+                     phase1_iters: Optional[int] = None,
+                     bucket: bool = False, device=None) -> tuple:
+    """Vectorized beta-init selection (``batch.py:417-503``): the
+    (stamp x candidate) grid is one batch of B*K solves, then an argmin
+    per stamp of the flux fractional difference 1 - F_rest/F_orig, where
+    F_orig is the background-subtracted stamp sum (or ``fluxes``).
+
+    ``scorer``: ``'flux_sum'`` (F_rest the restored pixel sum, on the
+    device) or a callable ``f(grid_x (B, K, H, W) np.ndarray) -> (B, K)
+    ffd``. A non-finite score never wins. ``'catalog'`` (the JAX default,
+    the brightest catalog source's flux) needs the host catalog pipeline,
+    which the port does not have yet (ROADMAP A15). ``device`` as in
+    ``restore_stamps``.
+
+    Returns (best_beta (B,), best_x (B, H, W), result for the full grid).
+    """
+    if scorer == 'catalog':
+        raise NotImplementedError(
+            "scorer='catalog' needs the host catalog pipeline, which is not "
+            "ported yet (ROADMAP A15); use scorer='flux_sum' or a callable")
+    if scorer != 'flux_sum' and not callable(scorer):
+        raise ValueError(f'unknown scorer {scorer!r}')
+    device = resolve_device(device, stamps)
+    if beta_candidates is None:
+        beta_candidates = default_beta_candidates()
+    beta_candidates = np.asarray(beta_candidates)
+    k = beta_candidates.shape[0]
+    stamps = _host(stamps)
+    b, h, w = stamps.shape
+
+    rep = lambda a: np.repeat(a, k, axis=0)
+    bkgs = _host(bkgs)
+    if bkgs.ndim == 0:
+        bkgs = np.broadcast_to(bkgs, (b,))
+    fluxes = _host(fluxes)
+    psf = _host(psf)
+    res = restore_stamps(rep(stamps), rep(psf) if psf.ndim == 3 else psf,
+                         rep(bkgs), cfg,
+                         fluxes=None if fluxes is None else rep(fluxes),
+                         beta0=np.tile(beta_candidates, b), lr0=lr0,
+                         sat_level=sat_level, mesh=mesh,
+                         phase1_iters=phase1_iters, bucket=bucket,
+                         device=device)
+
+    x_g = res.x.reshape(b, k, h, w)
+    if fluxes is not None:
+        f_orig = np.asarray(fluxes, np.float64)[:, None]
+    else:
+        bkg_tot = (bkgs.sum(axis=(1, 2)) if bkgs.ndim == 3
+                   else h * w * bkgs)
+        f_orig = (stamps.sum(axis=(1, 2)) - bkg_tot)[:, None]
+    if scorer == 'flux_sum':
+        ffd = 1.0 - x_g.sum((2, 3)) / torch.as_tensor(
+            f_orig, dtype=x_g.dtype, device=x_g.device)
+        best = torch.where(torch.isfinite(ffd), ffd, torch.inf).argmin(1)
+    else:
+        ffd_np = np.asarray(scorer(x_g.cpu().numpy()))
+        ffd_np = np.where(np.isfinite(ffd_np), ffd_np, np.inf)
+        best = torch.as_tensor(np.argmin(ffd_np, axis=1), device=x_g.device)
+    best_beta = torch.as_tensor(beta_candidates, dtype=cfg.torch_dtype,
+                                device=x_g.device)[best]
+    best_x = x_g[torch.arange(b, device=x_g.device), best]
+    return best_beta, best_x, res

@@ -1,4 +1,4 @@
-"""KL-SGP solver core over a batch of images, batch-first.
+"""SGP / beta-SGP solver core over a batch of images, batch-first.
 
 Port of ``tpu_sgp/solvers/sgp.py:62-601``. The JAX core solves one image in
 a ``lax.while_loop`` and batches it with ``vmap``; here every tensor carries
@@ -11,11 +11,12 @@ follows the trajectory it would follow alone.
 Images are raveled to (B, N) rows inside the solver; results come back in
 the input's image shape.
 
-Supported: the KL divergence, ``proj_type`` 0 and 1 with
-``projection_method='pallas'`` (the CUDA kernel on the card, its plain
-version on the CPU), init modes 0-3, stop rules 0-4, ``track_discr`` and
-``errflag``. ``divergence='beta'`` (ROADMAP A9), mesh axes (A13), the other
-projection methods (A5, A11) and ``save`` raise ``NotImplementedError``.
+Supported: the KL and beta divergences (beta adaptation in the line
+search, the learning-rate schedule), ``proj_type`` 0 and 1 with every
+projection method (``'pallas'`` runs the CUDA kernel on the card and its
+plain version on the CPU) and the warm-started bisection, init modes 0-3,
+stop rules 0-4, ``track_discr`` and ``errflag``. Mesh axes (ROADMAP A13)
+and ``save`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from ..device import resolve_device
 from ..ops import divergence as dv
 from ..ops.psf_operator import make_operator
 from ..ops.reduce import gmax, gmean, gmin, gsum, gsum_ff
-from ..projection.flux_projection import check_method, project_df_pallas
+from ..projection.flux_projection import project, project_df_bisect_warm
 
 
 class SGPResult(NamedTuple):
@@ -69,9 +70,6 @@ class SGPState(NamedTuple):
 
 def check_supported(cfg: SGPConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not have yet."""
-    if cfg.divergence != 'kl':
-        raise NotImplementedError(
-            "divergence='beta' is not ported yet (ROADMAP A9)")
     if cfg.axis_names or cfg.sync_axes:
         raise NotImplementedError(
             'axis_names / sync_axes (mesh solves) are not ported yet '
@@ -79,8 +77,6 @@ def check_supported(cfg: SGPConfig) -> None:
     if cfg.save:
         raise NotImplementedError(
             'save=True (per-iteration FITS dump) is not ported')
-    if cfg.proj_type == 1:
-        check_method(cfg.projection_method)
 
 
 def _use_stable(cfg: SGPConfig) -> bool:
@@ -169,15 +165,39 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
     sat = _lanes(sat_level, nb, dt, dev)
     stable = _use_stable(cfg)
 
-    def objective(x_tf, den):
+    beta = cfg.divergence == 'beta'
+    # the observed image is loop-invariant but its log enters every
+    # beta-objective evaluation (sgp.py:285-287)
+    log_gn = torch.log(gn) if beta else None
+    lr0 = _lanes(lr0, nb, dt, dev)
+
+    def objective(x_tf, den, bp):
+        """``_objective`` (sgp.py:140-146)."""
+        if beta:
+            return dv.beta_div(den, gn, bp, log_gn=log_gn, stable=stable)
         return dv.kl_objective(x_tf, den, gn, flux, stable=stable)
 
+    def gradient(den, bp):
+        """``_gradient`` (sgp.py:149-152)."""
+        if beta:
+            return dv.beta_grad_wrt_recon(AT, den, gn, bp)
+        return dv.kl_grad_wrt_recon(AT, den, gn)
+
+    sat_arg = sat if cfg.has_sat_level else None
+
     def proj(point, dia):
+        """``proj`` (sgp.py:232-260); one device, so every method runs as
+        configured (the remaps of sgp.py:224-230 need mesh axes)."""
         if cfg.proj_type == 0:
             return torch.clamp_min(point, 0.0)
-        return project_df_pallas(flux, point, dia, scaling,
-                                 sat_level=sat if cfg.has_sat_level else None,
-                                 has_sat=cfg.has_sat_level)
+        return project(cfg.projection_method, flux, point, dia, scaling,
+                       sat_level=sat_arg, has_sat=cfg.has_sat_level,
+                       max_projs=cfg.max_projs)
+
+    # the warm-started bisection carries the previous dual root across
+    # iterations (sgp.py:333-340)
+    use_warm = (cfg.proj_type != 0 and cfg.projection_method == 'bisect'
+                and cfg.warm_projection)
 
     # ---- error tracking (sgp.py:268-280) ----------------------------------
     if cfg.errflag:
@@ -217,10 +237,11 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
             err[:, 0] = rel_err(x)
         else:
             err = torch.zeros(nb, 1, dtype=dt, device=dev)
+        beta_p = _lanes(beta0, nb, dt, dev).clone()
         x_tf = A(x)
         den = x_tf + bkg
-        g = dv.kl_grad_wrt_recon(AT, den, gn)
-        fv = objective(x_tf, den)
+        g = gradient(den, beta_p)
+        fv = objective(x_tf, den, beta_p)
         if cfg.track_discr:
             discr = torch.zeros(nb, series, dtype=dt, device=dev)
             discr[:, 0] = discr_coeff * fv
@@ -237,8 +258,7 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
             valpha=torch.full((nb, cfg.m_alpha), cfg.alpha_max, dtype=dt,
                               device=dev),
             fold=torch.full((nb, cfg.m_mem), -1e30, dtype=dt, device=dev),
-            beta_p=_lanes(beta0, nb, dt, dev).clone(),
-            lr=_lanes(lr0, nb, dt, dev).clone(),
+            beta_p=beta_p, lr=lr0.clone(),
             discr=discr, err=err,
             lam_dual=full(float('nan')), dlam_dual=full(float('inf')))
     else:
@@ -247,7 +267,8 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
     # ---- main loop (sgp.py:342-531) ---------------------------------------
     def body(st: SGPState, active: torch.Tensor) -> SGPState:
         it, x, g, x_tf, fv = st.it, st.x, st.g, st.x_tf, st.fv
-        alpha, tau = st.alpha, st.tau
+        alpha, tau, beta_p, lr = st.alpha, st.tau, st.beta_p, st.lr
+        lam_dual, dlam_dual = st.lam_dual, st.dlam_dual
         x_mat = scaling_matrix(x, it)
 
         # valpha.at[:-1].set(valpha[1:]): shift left, last entry kept
@@ -258,6 +279,15 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
         y = x - col(alpha) * x_mat * g
         if cfg.proj_type == 0:
             y = torch.clamp_min(y, 0.0)
+        elif use_warm:
+            d_metric = 1.0 / x_mat
+            y, lam_new = project_df_bisect_warm(
+                flux, y * d_metric, d_metric, scaling, sat_level=sat_arg,
+                has_sat=cfg.has_sat_level, lam_prev=lam_dual,
+                dlam_prev=dlam_dual)
+            dlam_dual = torch.where(torch.isfinite(lam_dual),
+                                    (lam_new - lam_dual).abs(), torch.inf)
+            lam_dual = lam_new
         else:
             d_metric = 1.0 / x_mat
             y = proj(y * d_metric, d_metric)
@@ -270,13 +300,15 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
         # Backtracking on the linearized transform (sgp.py:375-449). A
         # lane's trial count equals the loop's while the lane runs, so the
         # max_backtracks cap is the loop bound; lanes that stopped in the
-        # outer loop start out done.
+        # outer loop start out done. With beta adaptation a rejected trial
+        # moves the lane's beta along the mean d(betaDiv)/dbeta at that
+        # trial (sgp.py:389-406); the accepted beta feeds g_new.
         lam = torch.ones(nb, dtype=dt, device=dev)
         if cfg.max_backtracks == 0:
             # Line search disabled (sgp.py:427-436): take lam = 1 but still
             # evaluate the objective there, since fv feeds fold, discr and
             # stop rules 3/4.
-            fv_new = objective(x_tf + d_tf, x_tf + d_tf + bkg)
+            fv_new = objective(x_tf + d_tf, x_tf + d_tf + bkg, beta_p)
         else:
             fv_new = fv
             done = ~active
@@ -284,11 +316,19 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
                 if bool(done.all()):
                     break
                 x_tf_try = x_tf + col(lam) * d_tf
-                fv_t = objective(x_tf_try, x_tf_try + bkg)
+                den_t = x_tf_try + bkg
+                if beta and cfg.adapt_beta:
+                    fv_t, dbeta = dv.beta_div_with_dbeta(
+                        den_t, gn, beta_p, log_gn, stable=stable)
+                else:
+                    fv_t = objective(x_tf_try, den_t, beta_p)
                 ok = (fv_t <= fr + gamma * lam * gd) | (lam < 1e-12)
                 run = ~done
                 fv_new = torch.where(run, fv_t, fv_new)
                 lam = torch.where(run & ~ok, lam * bt, lam)
+                if beta and cfg.adapt_beta:
+                    beta_p = torch.where(run & ~ok, beta_p - lr * (dbeta / n),
+                                         beta_p)
                 done = done | ok
             # Cap-exit fix (sgp.py:441-449): on a max_backtracks exit lam
             # was shrunk once past the last evaluated trial; undo it so
@@ -298,7 +338,7 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
         x_new = x + col(lam) * d
         sk = col(lam) * d
         x_tf_new = x_tf + col(lam) * d_tf
-        g_new = dv.kl_grad_wrt_recon(AT, x_tf_new + bkg, gn)
+        g_new = gradient(x_tf_new + bkg, beta_p)
         yk = g_new - g
 
         # Scaling matrix + BB steplengths (sgp.py:458-481).
@@ -325,6 +365,11 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
         alpha_new = torch.where(early | ratio_low, valpha.amin(-1), alpha1)
         tau_new = torch.where(early, tau,
                               torch.where(ratio_low, tau * 0.9, tau * 1.1))
+
+        if beta and cfg.schedule_lr:
+            # epoch = it before the increment, from the call's lr0
+            # (sgp.py:483-486)
+            lr = dv.lr_schedule(lr0, cfg.lr_exp_param, it.to(dt))
 
         it_new = it + 1
         lanes = torch.arange(nb, device=dev)
@@ -354,8 +399,8 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
         # x stays the accepted iterate; revert-on-exit (sgp.py:568-572) is
         # applied at the end from x_prev, so the state stays resumable.
         new = SGPState(keep, it_new, x_new, x, ~rule_keep, g_new, x_tf_new,
-                       fv_new, alpha_new, tau_new, valpha, fold, st.beta_p,
-                       st.lr, discr, err, st.lam_dual, st.dlam_dual)
+                       fv_new, alpha_new, tau_new, valpha, fold, beta_p, lr,
+                       discr, err, lam_dual, dlam_dual)
         # Masked commit: lanes that stopped keep their state, as the lanes
         # of a vmapped while_loop do.
         return SGPState(*(_where(active, a, b) for a, b in zip(new, st)))
