@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``tpu_sgp_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--from N]
+
+With ``--from N`` (13 to 17) phases 3 to N - 1 are skipped and no result is
+printed: a short run for work on the later phases.
 
 Phases, one line of output each (or a few):
   1. environment: torch, CUDA, nvcc, the card's name and power limit; TF32
@@ -40,7 +43,31 @@ Phases, one line of output each (or a few):
  11. the beta path at full size: the JAX bench's beta configuration
      ('section', beta0 1.005, lr0 1e-3), and the final beta distribution;
  12. phases 10 and 11 at B=256 on the card and on the CPU, float64 lane for
-     lane, float32 as distributions.
+     lane, float32 as distributions;
+ 13. the projection kernel on long rows, one whole frame a row: (1, 168100)
+     and (4, 65536), float32 and float64, with and without saturation,
+     against its plain version; the time of the grid path (a row split over
+     many blocks) beside the one-block-a-row path's, the plain version's
+     and the bound;
+ 14. the FFT operators on the card: 'otf' against the dense circulant at
+     31x31 and 64x64 and its adjoint identity; 'linear' against a direct
+     zero-padded convolution and against the CPU at 410x410 with a 31x31
+     and a 9x13 PSF; 'matmul_split' against 'matmul_flat'; the time of an
+     operator pair at padded sizes 440, 448, 480 and 512;
+ 15. the whole-frame path: a 410x410 star field under a 31x31 PSF through
+     ``tpu_sgp_torch.sgp`` and through ``solve`` with the JAX bench's two
+     whole-frame configurations (200 fixed iterations for ms an iteration;
+     stop rule 3 at 1e-5 for iterations and wall), with the warm 'bisect'
+     projection and with 'pallas' (the kernel on one 168100-pixel row, its
+     launches counted); a 256x256 frame with a PSF of its own shape ('otf')
+     through ``sgp``; ``sgp_beta_div`` at 410x410; one profiled run;
+ 16. the whole-frame solve on the card against the CPU: float64 equal
+     iterations and x within 1e-7 under stop rule 3; float32 within 1e-3
+     (relative L2) of float64 after 10 fixed iterations, and its distance
+     after 25 and 50;
+ 17. ``richardson_lucy`` and ``wiener`` on the card against the CPU, and a
+     ``solve_checkpointed`` run on the card that equals the uninterrupted
+     solve.
 
 Then a JSON line of the kernels, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -109,6 +136,25 @@ K2_FULL_REL_SAME = {'median': 5e-4, 'p95': 6e-3, 'max': 7e-2}
 # the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+# phase 13: the long rows, (rows, pixels): one 410x410 frame, four 256x256
+LONG_ROWS = ((1, 410 * 410), (4, 256 * 256))
+# phases 15-16: the JAX bench's whole-frame workload (bench.py:387-413): a
+# 410x410 star field, a 31x31 PSF, background 150, no flux given, no
+# saturation, the warm-started bisection
+FRAME_BKG = 150.0
+FRAME_BASE = dict(init_recon=2, proj_type=1, has_flux=False,
+                  has_sat_level=False, dtype='float32', track_discr=False,
+                  warm_projection=True)
+FRAME_TIMED = dict(FRAME_BASE, max_iter=200, stop_criterion=1)
+FRAME_CONVERGED = dict(FRAME_BASE, max_iter=500, stop_criterion=3,
+                       tol_convergence=1e-5)
+# phase 14: max|dy|/max|y| between two ways to the same product (FFT and
+# dense, FFT and direct sum, card and CPU): only the order of the sums and
+# the FFT's roundoff differ
+FFT_TOL = {'float32': 1e-5, 'float64': 1e-12}
+# phase 16: float32 against float64 after these fixed iteration counts;
+# the first is held to 1e-3
+F32_ITERS = (10, 25, 50)
 
 
 def check(ok: bool, what: str) -> None:
@@ -124,9 +170,10 @@ def run(cmd: list[str]) -> str:
 def projection_case(torch, rows: int, n: int, dtype, has_sat: bool,
                     device, seed: int):
     """Random (rows, n) projection inputs with per-row b and cap; the cap
-    leaves room for the flux (n * cap >= 1.5 b)."""
+    leaves room for the flux (n * cap >= 1.5 b). Rows longer than a stamp
+    keep a stamp's flux a pixel, as a frame's flux grows with its size."""
     rng = np.random.default_rng(seed)
-    b = rng.uniform(50.0, 500.0, rows)
+    b = rng.uniform(50.0, 500.0, rows) * max(1.0, n / N_PIX)
     c = rng.normal(0.5, 1.0, (rows, n))
     dia = rng.uniform(0.5, 2.0, (rows, n))
     cap = rng.uniform(1.5, 3.0, rows) * b / n
@@ -693,18 +740,18 @@ def phase_methods(torch) -> None:
               f'({host} cudaLaunchKernel calls)')
 
 
-def profile_path(torch, path: str, inputs) -> None:
-    """One more run of ``path`` under ``torch.profiler``: its wall (slowed
-    by the profiler), the card's busy time (the device time of every
-    kernel, memory copies included) and its share of that wall, the
-    device events, and the six ATen operations that took the most device
-    time (their kernels' time, summed over their calls)."""
+def profile_call(torch, fn) -> tuple:
+    """One call of ``fn`` under ``torch.profiler``: its wall (slowed by the
+    profiler), the card's busy milliseconds (the device time of every
+    kernel and copy), the device events, and the six ATen operations of
+    most device time as text."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        restore(torch, inputs, 'cuda', path=path)
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -712,11 +759,19 @@ def profile_path(torch, path: str, inputs) -> None:
     top = sorted((e for e in prof.key_averages()
                   if e.key.startswith('aten::')),
                  key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    return wall, busy, len(device), '; '.join(
+        f'{e.key} {e.self_device_time_total / 1e3:.3f} ms x{e.count}'
+        for e in top)
+
+
+def profile_path(torch, path: str, inputs) -> None:
+    """One more run of ``path`` under ``torch.profiler``
+    (``profile_call``)."""
+    wall, busy, events, top = profile_call(
+        torch, lambda: restore(torch, inputs, 'cuda', path=path))
     print(f'{path} path profile B={MAIN_B}: wall {wall:.4f} s (profiled), '
           f'card busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} % of '
-          f'the wall), {len(device)} device events; most device time: '
-          + '; '.join(f'{e.key} {e.self_device_time_total / 1e3:.3f} ms '
-                      f'x{e.count}' for e in top))
+          f'the wall), {events} device events; most device time: {top}')
 
 
 def phase_path(torch, card: str, path: str, pallas_wall: float) -> None:
@@ -750,6 +805,405 @@ def phase_path(torch, card: str, path: str, pallas_wall: float) -> None:
         profile_path(torch, name, inputs)
 
 
+def phase_long_rows(torch) -> dict:
+    """Phase 13: K1 on rows too long for one block, at ``LONG_ROWS``. The
+    launcher must pick the grid path by itself (``launch_plan``); its
+    result, and the one-block-a-row path's, against the plain version to
+    ``KERNEL_TOL`` of max|x|. Then the times at (1, 168100) float32
+    without saturation, the whole-frame solve's own call: grid path,
+    one-block path, grid path again, plain version."""
+    from tpu_sgp_torch.kernels.flux_projection import (launch_plan,
+                                                       project_rows,
+                                                       project_rows_plain)
+    from tpu_sgp_torch.projection.flux_projection import section_steps
+    main_err, seed = None, 300
+    for rows, n in LONG_ROWS:
+        for name in ('float32', 'float64'):
+            dtype = getattr(torch, name)
+            steps = section_steps(dtype)
+            chosen, _, blocks = launch_plan(rows, n, dtype, 'auto', 0)
+            check(chosen == 'grid' and blocks > rows,
+                  f'({rows}, {n}) {name}: the launcher splits the rows over '
+                  f'the grid')
+            for has_sat in (True, False):
+                seed += 1
+                args = projection_case(torch, rows, n, dtype, has_sat,
+                                       'cuda', seed)
+                before = project_rows.grid_launches
+                got = project_rows(*args, steps, has_sat)
+                check(project_rows.grid_launches == before + 1,
+                      'the call took the grid path')
+                one = project_rows(*args, steps, has_sat, path='rows')
+                want = project_rows_plain(*args, steps, has_sat)
+                torch.cuda.synchronize()
+                scale = float(want.abs().max())
+                abs_err = float((got - want).abs().max())
+                rel, rel_one = abs_err / scale, float(
+                    (one - want).abs().max()) / scale
+                flux = float(((got.sum(-1) - args[0]).abs() / args[0]).max())
+                print(f'kernel long row ({rows}, {n}) {name} has_sat='
+                      f'{has_sat}: grid path ({blocks} blocks) max|dx|/max|x|'
+                      f'={rel:.3e}, one block a row {rel_one:.3e} (limit '
+                      f'{KERNEL_TOL[name]:.0e}) flux rel err={flux:.3e}')
+                check(bool(torch.isfinite(got).all()), 'finite kernel x')
+                check(max(rel, rel_one) <= KERNEL_TOL[name],
+                      'long-row kernel agrees with plain')
+                check(flux <= FLUX_RTOL[name], 'long-row kernel conserves '
+                      'flux')
+                if (rows, name, has_sat) == (1, 'float32', False):
+                    main_err = abs_err
+
+    rows, n = LONG_ROWS[0]
+    steps = section_steps(torch.float32)
+    args = projection_case(torch, rows, n, torch.float32, False, 'cuda', 399)
+    grid = lambda: project_rows(*args, steps, False)
+    ms = time_ms(torch, grid, reps=50)
+    one_ms = time_ms(torch, lambda: project_rows(*args, steps, False,
+                                                 path='rows'), reps=50)
+    ms2 = time_ms(torch, grid, reps=50)
+    plain_ms = time_ms(torch, lambda: project_rows_plain(*args, steps,
+                                                         False), reps=5)
+    k1_bound = bound((3 * rows * n + 2 * rows) * 4,
+                     rows * n * (steps * 7 * 5 + 8))
+    _, _, blocks = launch_plan(rows, n, torch.float32, 'auto', 0)
+    print(f'kernel long row time ({rows}, {n}) float32 has_sat=False: grid '
+          f'path {ms:.4f} ms ({blocks} blocks; again {ms2:.4f} ms), one '
+          f'block a row {one_ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+          f'{k1_bound["bound_ms"]:.5f} ms ({k1_bound["bound_by"]})')
+    return dict(max_abs_err=main_err, ms=ms, plain_ms=plain_ms, **k1_bound,
+                library_ms=None)
+
+
+def frame_inputs():
+    """The whole-frame workload: a 410x410 field of 60 stars and its 31x31
+    PSF (bench.py:402-403)."""
+    from tpu_sgp_torch.simulate import synthetic_star_field
+    img, psf, _ = synthetic_star_field(410, 410, n_stars=60, psf_size=31,
+                                       fwhm=3.0, seed=7)
+    return img, psf
+
+
+def otf_frame_inputs(size: int = 256):
+    """A frame whose PSF has its own shape, so 'auto' picks 'otf': 40 stars
+    blurred circularly, background 150, Poisson noise."""
+    from tpu_sgp_torch.simulate import _circular_degrade, gaussian_psf
+    rng = np.random.default_rng(8)
+    psf = gaussian_psf(size, 3.0)
+    truth = np.zeros((size, size))
+    np.add.at(truth, (rng.integers(2, size - 2, 40),
+                      rng.integers(2, size - 2, 40)),
+              rng.uniform(2e3, 8e4, 40))
+    blurred = _circular_degrade(truth, psf) + FRAME_BKG
+    return rng.poisson(np.maximum(blurred, 0.0)).astype(np.float64), psf
+
+
+def solve_frame(torch, img, psf, cfg, device='cuda'):
+    """``solve`` on one frame as bench.py:411-419 calls it: the operands
+    placed on the device beforehand, the wall around the solve alone,
+    ending in a synchronize. Returns (result, wall seconds)."""
+    from tpu_sgp_torch.solvers.sgp import solve
+    t = lambda a: torch.as_tensor(a, dtype=cfg.torch_dtype, device=device)
+    gn, psf_d = t(img[None]), t(psf)
+    bkg = torch.full_like(gn, FRAME_BKG)
+    z = torch.zeros_like(gn)
+    if gn.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(gn, psf_d, bkg, z, 0.0, z, 1.0, 1e-3, 0.0, cfg)
+    if gn.is_cuda:
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def check_frame(torch, x, img, what: str, dtype: str = 'float32') -> float:
+    """A restored frame: on the card or the host as given, finite, of the
+    frame's shape, its flux sum(gn - bkg) conserved."""
+    x = torch.as_tensor(x)
+    check(tuple(x.shape[-2:]) == img.shape, f'{what}: x has the frame\'s '
+          f'shape')
+    check(bool(torch.isfinite(x).all()), f'{what}: x is finite')
+    flux = float((img - FRAME_BKG).sum())
+    err = abs(float(x.double().sum()) - flux) / flux
+    check(err <= FLUX_RTOL[dtype], f'{what}: flux conserved ({err:.3e})')
+    return err
+
+
+def phase_operators(torch) -> None:
+    """Phase 14: the FFT and split operators on the card."""
+    import torch.nn.functional as F
+    from tpu_sgp_torch.ops import psf_operator as op
+    from tpu_sgp_torch.simulate import gaussian_psf, moffat_psf
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    rng = np.random.default_rng(400)
+    for size in (31, 64):
+        psf = gaussian_psf(size, 2.8)
+        x = rng.uniform(0.0, 100.0, (8, size, size))
+        y = rng.uniform(0.0, 100.0, (8, size, size))
+        for name, tol in FFT_TOL.items():
+            t = lambda a: torch.as_tensor(a, dtype=getattr(torch, name),
+                                          device='cuda')
+            A, AT = op.make_operator(t(psf), (size, size), 'otf')
+            A_d, AT_d = op.make_operator(t(psf), (size, size), 'matmul')
+            ra, rat = rel(A(t(x)), A_d(t(x))), rel(AT(t(x)), AT_d(t(x)))
+            lhs = (A(t(x)) * t(y)).sum((1, 2)).double()
+            rhs = (t(x) * AT(t(y))).sum((1, 2)).double()
+            adj = float(((lhs - rhs).abs() / lhs.abs()).max())
+            print(f'operator otf vs dense {size}x{size} {name}: A {ra:.3e} '
+                  f'AT {rat:.3e} (limit {tol:.0e}), <Ax,y> vs <x,ATy> '
+                  f'{adj:.3e}')
+            check(max(ra, rat) <= tol, f"'otf' {name} equals the dense "
+                  f'circulant')
+            check(adj <= 10 * tol, f"'otf' {name}: AT is the adjoint")
+
+    img, _ = frame_inputs()
+    shape = img.shape
+    x = np.stack([img, rng.uniform(0.0, 100.0, shape)])
+    for label, psf in (('31x31', gaussian_psf(31, 3.0)),
+                       ('9x13', moffat_psf(13, 3.0)[2:11] * 1.7)):
+        kh, kw = psf.shape
+        for name, tol in FFT_TOL.items():
+            dtype = getattr(torch, name)
+            t = lambda a, dev='cuda': torch.as_tensor(a, dtype=dtype,
+                                                      device=dev)
+            A, AT = op.make_operator(t(psf), shape, 'auto')
+            A_c, AT_c = op.make_operator(t(psf, 'cpu'), shape, 'auto')
+            ga, gat = A(t(x)), AT(t(x))
+            check(ga.dtype == dtype and tuple(ga.shape) == x.shape,
+                  "'linear' keeps dtype and shape")
+            ca = rel(ga.cpu(), A_c(t(x, 'cpu')))
+            cat = rel(gat.cpu(), AT_c(t(x, 'cpu')))
+            # the direct sum, float64 on the card: a correlation with the
+            # flipped unit-sum kernel, zero padding of half the kernel
+            k = torch.as_tensor(psf / psf.sum(), dtype=torch.float64,
+                                device='cuda')
+            direct = F.conv2d(t(x).double()[:, None], k.flip(0, 1)[None, None],
+                              padding=(kh // 2, kw // 2))[:, 0]
+            da = rel(ga.double(), direct)
+            rows = A(t(x).reshape(2, -1))
+            check(torch.equal(rows, ga.reshape(2, -1)),
+                  "'linear' on rows equals 'linear' on images")
+            print(f'operator linear 410x410 psf {label} {name}: A vs direct '
+                  f'convolution {da:.3e}, card vs cpu A {ca:.3e} AT '
+                  f'{cat:.3e} (limit {tol:.0e})')
+            check(da <= max(tol, 1e-11), "'linear' equals the direct "
+                  'zero-padded convolution')
+            check(max(ca, cat) <= tol, "'linear' on the card equals the CPU")
+
+    psf = torch.as_tensor(gaussian_psf(31, 2.8), dtype=torch.float32,
+                          device='cuda')
+    xs = torch.as_tensor(rng.uniform(0.0, 100.0, (64, N_PIX)),
+                         dtype=torch.float32, device='cuda')
+    exact = op.make_operator(psf.double(), (N_PIX,), 'matmul_flat')
+    split = op.make_operator(psf, (N_PIX,), 'matmul_split')
+    errs = [rel(s_(xs).double(), e_(xs.double()))
+            for s_, e_ in zip(split, exact)]
+    flat = op.make_operator(psf, (N_PIX,), 'matmul_flat')
+    ms_split = time_ms(torch, lambda: split[1](split[0](xs)))
+    ms_flat = time_ms(torch, lambda: flat[1](flat[0](xs)))
+    print(f'operator matmul_split vs matmul_flat (64, {N_PIX}) float32: A '
+          f'{errs[0]:.3e} AT {errs[1]:.3e} (limit 2^-15 = {2 ** -15:.3e}); '
+          f'pair {ms_split:.4f} ms against {ms_flat:.4f} ms')
+    check(max(errs) <= 2.0 ** -15, "'matmul_split' within 2^-15")
+
+    # the padded size: 410 + 31 - 1 = 440 is the least, 448 the 7-smooth
+    # size the operator takes
+    psf = torch.as_tensor(gaussian_psf(31, 3.0), dtype=torch.float32,
+                          device='cuda')
+    x1 = torch.as_tensor(img[None], dtype=torch.float32, device='cuda')
+    parts, base = [], None
+    for size in (440, 448, 480, 512):
+        A, AT = op.make_linear_operator(psf, shape, pad_to=(size, size))
+        ms = time_ms(torch, lambda: AT(A(x1)), reps=50)
+        got = AT(A(x1))
+        base = got if base is None else base
+        check(rel(got, base) <= 1e-5, 'the padded size leaves the result')
+        parts.append(f'{size}: {ms:.4f} ms')
+    check(op._good_fft_size(440) == 448, 'the 7-smooth rule takes 448')
+    print("operator pair time 'linear' (1, 410, 410) float32 psf 31x31, "
+          'AT(A(x)) by padded size: ' + ', '.join(parts))
+
+
+def phase_frame(torch, card: str) -> int:
+    """Phase 15: the whole-frame path. Returns the launches of K1 (all on
+    the grid path) in one 200-iteration ``solve`` with 'pallas'."""
+    import tpu_sgp_torch as tsgp
+    from tpu_sgp_torch.kernels.flux_projection import project_rows
+    img, psf = frame_inputs()
+
+    # the facade: numpy in, numpy out, the card by default, cold 'bisect'
+    kw = dict(init_recon=2, proj_type=1, stop_criterion=3, MAXIT=500,
+              tol_convergence=1e-5)
+    tsgp.sgp(img, psf, FRAME_BKG, **dict(kw, MAXIT=3))          # warm-up
+    x, iters, discr, times, err = tsgp.sgp(img, psf, FRAME_BKG, **kw)
+    check(isinstance(x, np.ndarray) and x.dtype == np.float32
+          and err is None and discr.shape == times.shape == (iters + 1,),
+          'sgp returns the reference\'s tuple')
+    flux = check_frame(torch, x, img, 'sgp 410x410')
+    print(f'frame sgp 410x410 psf 31x31 float32 (linear, cold bisect, stop '
+          f'3 at 1e-5): iters={iters} wall={times[-1]:.4f} s '
+          f'({times[-1] * 1e3 / max(iters, 1):.3f} ms an iteration) flux rel '
+          f'err={flux:.3e} [{card}]')
+
+    launches = None
+    for method in ('bisect', 'pallas'):
+        cfg_t = tsgp.SGPConfig(**FRAME_TIMED, projection_method=method)
+        cfg_c = tsgp.SGPConfig(**FRAME_CONVERGED, projection_method=method)
+        solve_frame(torch, img, psf, cfg_t.replace(max_iter=3))  # warm-up
+        project_rows.launches = project_rows.grid_launches = 0
+        res_t, wall_t = solve_frame(torch, img, psf, cfg_t)
+        counts = project_rows.launches, project_rows.grid_launches
+        res_c, wall_c = solve_frame(torch, img, psf, cfg_c)
+        it_t, it_c = int(res_t.iters[0]), int(res_c.iters[0])
+        check(res_t.x.is_cuda and it_t == 200, f'{method}: 200 iterations on '
+              f'the card')
+        flux = max(check_frame(torch, res_t.x, img, f'frame {method} timed'),
+                   check_frame(torch, res_c.x, img, f'frame {method} '
+                               f'converged'))
+        if method == 'pallas':
+            launches = counts[0]
+            check(counts == (it_t + 1, it_t + 1),
+                  f'the kernel ran once a projection, each on the grid path '
+                  f'(launches, grid launches = {counts})')
+        else:
+            check(counts == (0, 0), "'bisect' launches no kernel")
+        print(f'frame solve 410x410 float32 {method} (warm={method == "bisect"}'
+              f'): {wall_t * 1e3 / it_t:.3f} ms an iteration at 200 fixed '
+              f'iterations (wall {wall_t:.4f} s); stop 3 at 1e-5: iters='
+              f'{it_c} wall={wall_c:.4f} s; K1 launches={counts[0]} (grid '
+              f'path {counts[1]}); flux rel err={flux:.3e} [{card}]')
+
+    cfg_p = tsgp.SGPConfig(**dict(FRAME_TIMED, max_iter=50),
+                           projection_method='pallas')
+    for method in ('pallas', 'bisect'):
+        cfg = cfg_p.replace(projection_method=method)
+        wall, busy, events, top = profile_call(
+            torch, lambda: solve_frame(torch, img, psf, cfg))
+        print(f'frame {method} profile 410x410, 50 iterations: wall '
+              f'{wall:.4f} s (profiled), card busy {busy:.3f} ms '
+              f'({100 * busy / (wall * 1e3):.1f} % of the wall), {events} '
+              f'device events ({events / 50:.1f} an iteration); most device '
+              f'time: {top}')
+
+    oimg, opsf = otf_frame_inputs()
+    kw = dict(init_recon=2, proj_type=1, stop_criterion=3, MAXIT=500,
+              tol_convergence=1e-5)
+    tsgp.sgp(oimg, opsf, FRAME_BKG, **dict(kw, MAXIT=3))        # warm-up
+    x, iters, _, times, _ = tsgp.sgp(oimg, opsf, FRAME_BKG, **kw)
+    flux = check_frame(torch, x, oimg, 'sgp 256x256 otf')
+    x1, it1, _, t1, _ = tsgp.sgp(oimg, opsf, FRAME_BKG,
+                                 **dict(kw, stop_criterion=1, MAXIT=200))
+    check_frame(torch, x1, oimg, 'sgp 256x256 otf timed')
+    print(f'frame sgp 256x256 psf 256x256 float32 (otf, cold bisect): '
+          f'{t1[-1] * 1e3 / it1:.3f} ms an iteration at {it1} fixed '
+          f'iterations; stop 3 at 1e-5: iters={iters} wall={times[-1]:.4f} s '
+          f'flux rel err={flux:.3e} [{card}]')
+
+    x, iters, _, times, _ = tsgp.sgp_beta_div(img, psf, FRAME_BKG,
+                                              schedule_lr=True, **kw)
+    flux = check_frame(torch, x, img, 'sgp_beta_div 410x410')
+    print(f'frame sgp_beta_div 410x410 float32 (linear, cold bisect, beta0 '
+          f'1.005, stop 3 at 1e-5): iters={iters} wall={times[-1]:.4f} s '
+          f'flux rel err={flux:.3e} [{card}]')
+    return launches
+
+
+def phase_frame_vs_cpu(torch) -> None:
+    """Phase 16: the 410x410 solve on the card against the CPU. float64,
+    stop rule 3 at 1e-5: equal iterations, x within 1e-7 of max|x|, with
+    the warm 'bisect' (plain PyTorch on both) and with 'pallas' (the kernel
+    against its plain version). float32 against float64 on the card at
+    fixed iteration counts, in relative L2: within 1e-3 after 10
+    iterations; the distance after 25 and 50 is printed and not held,
+    because the iteration amplifies a rounding difference about tenfold
+    every ten iterations in the JAX package too (PERF.md), and float32
+    stop-rule-3 counts move with roundoff (bench.py:390-393), so none is
+    compared."""
+    import tpu_sgp_torch as tsgp
+    img, psf = frame_inputs()
+    for method in ('bisect', 'pallas'):
+        cfg = tsgp.SGPConfig(**dict(FRAME_CONVERGED, dtype='float64'),
+                             projection_method=method)
+        gpu, _ = solve_frame(torch, img, psf, cfg)
+        cpu, wall = solve_frame(torch, img, psf, cfg, device='cpu')
+        rel = float((gpu.x.cpu() - cpu.x).abs().max() / cpu.x.abs().max())
+        check_frame(torch, gpu.x, img, f'float64 {method}', 'float64')
+        print(f'frame card vs cpu 410x410 float64 {method} stop 3: iters '
+              f'{int(gpu.iters[0])} vs {int(cpu.iters[0])}, max|dx|/max|x|='
+              f'{rel:.3e} (limit 1e-07); cpu wall {wall:.2f} s')
+        check(int(gpu.iters[0]) == int(cpu.iters[0]),
+              f'float64 {method}: equal iterations on card and CPU')
+        check(rel <= 1e-7, f'float64 {method}: x agrees to 1e-7')
+        parts = []
+        for iters in F32_ITERS:
+            cfg_n = tsgp.SGPConfig(**dict(FRAME_TIMED, max_iter=iters),
+                                   projection_method=method)
+            x32 = solve_frame(torch, img, psf, cfg_n)[0].x.double()
+            x64 = solve_frame(torch, img, psf,
+                              cfg_n.replace(dtype='float64'))[0].x
+            l2 = float(((x32 - x64) ** 2).sum().sqrt()
+                       / (x64 ** 2).sum().sqrt())
+            parts.append(f'{iters}: {l2:.3e}')
+            if iters == F32_ITERS[0]:
+                check(l2 <= 1e-3, f'float32 {method} within 1e-3 of float64 '
+                      f'after {iters} iterations')
+        print(f'frame float32 vs float64 410x410 {method}, relative L2 by '
+              f'fixed iterations (limit 1e-03 at {F32_ITERS[0]}): '
+              + ', '.join(parts))
+
+
+def phase_classic_checkpoint(torch) -> None:
+    """Phase 17: Richardson-Lucy (30 updates) and Wiener on the 410x410 and
+    256x256 frames, card against CPU in float64 (1e-10 of max|x|) and
+    timed in float32; ``solve_checkpointed`` on the card, a checkpoint
+    every 7 iterations, equal to the uninterrupted solve."""
+    import tempfile
+
+    import tpu_sgp_torch as tsgp
+    from tpu_sgp_torch.solvers.checkpoint import (load_state,
+                                                  solve_checkpointed)
+    img, psf = frame_inputs()
+    oimg, opsf = otf_frame_inputs()
+    rl = lambda dev, dt: tsgp.richardson_lucy(img, psf, FRAME_BKG, 30,
+                                              dtype=dt, device=dev)
+    wi = lambda dev, dt: tsgp.wiener(oimg, opsf, 1e-3, dtype=dt, device=dev)
+    for name, fn in (('richardson_lucy 410x410 (linear, 30 updates)', rl),
+                     ('wiener 256x256', wi)):
+        got, want = fn('cuda', torch.float64), fn('cpu', torch.float64)
+        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        check(got.is_cuda and bool(torch.isfinite(got).all()),
+              f'{name}: finite on the card')
+        ms = time_ms(torch, lambda: fn('cuda', torch.float32), reps=5)
+        print(f'{name}: card vs cpu float64 max|dx|/max|x|={rel:.3e} (limit '
+              f'1e-10); float32 {ms:.3f} ms a call on the card')
+        check(rel <= 1e-10, f'{name}: card agrees with the CPU')
+
+    cfg = tsgp.SGPConfig(**dict(FRAME_CONVERGED, dtype='float64',
+                                max_iter=40))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device='cuda')
+    gn = t(img[None])
+    z = torch.zeros_like(gn)
+    args = (gn, t(psf), torch.full_like(gn, FRAME_BKG), z, 0.0, z, 1.0, 1e-3,
+            0.0)
+    want = tsgp.solve(*args, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        res, state = solve_checkpointed(*args, cfg, path=f'{tmp}/frame',
+                                        every=7)
+        saved = load_state(f'{tmp}/frame')
+    rel = float((res.x - want.x).abs().max() / want.x.abs().max())
+    print(f'solve_checkpointed 410x410 float64 every=7: iters '
+          f'{int(res.iters[0])} vs {int(want.iters[0])} uninterrupted, '
+          f'max|dx|/max|x|={rel:.3e}; last checkpoint at it='
+          f'{int(saved.it[0])} on {saved.x.device.type}')
+    check(int(res.iters[0]) == int(want.iters[0]) and rel <= 1e-12,
+          'chunked equals uninterrupted')
+    check(saved.x.is_cuda and int(saved.it[0]) == int(state.it[0])
+          and tuple(saved.x.shape) == (1,) + img.shape,
+          'the last checkpoint is the final state, in the frame\'s shape')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -768,8 +1222,20 @@ def main() -> int:
           f'cuda {torch.version.cuda} nvcc "{nvcc_version}" card "{card}" '
           f'devices={torch.cuda.device_count()}')
 
-    # 2-8
+    first = int(sys.argv[2]) if sys.argv[1:2] == ['--from'] else 2
     phase_build()
+    if first > 2:
+        for number, phase in ((13, lambda: phase_long_rows(torch)),
+                              (14, lambda: phase_operators(torch)),
+                              (15, lambda: phase_frame(torch, card)),
+                              (16, lambda: phase_frame_vs_cpu(torch)),
+                              (17, lambda: phase_classic_checkpoint(torch))):
+            if number >= first:
+                phase()
+        print(f'partial run from phase {first}: no result')
+        return 0
+
+    # 3-8
     kernel = phase_kernel(torch, 'cuda')
     launches, unfused_wall, unfused_iters = phase_main_path(torch, card)
     phase_card_vs_cpu(torch)
@@ -785,11 +1251,19 @@ def main() -> int:
     for path in ('kl bisect', 'beta section'):
         phase_card_vs_cpu(torch, path)
 
+    # 13-17
+    long_row = phase_long_rows(torch)
+    phase_operators(torch)
+    frame_launches = phase_frame(torch, card)
+    phase_frame_vs_cpu(torch)
+    phase_classic_checkpoint(torch)
+
+    k1 = {'route': 'cuda', 'source': 'tpu_sgp_torch/csrc/flux_projection.cu',
+          'replaces': 'tpu_sgp/experimental/pallas_projection.py:40'}
     print(json.dumps({'kernels': [{
-        'name': 'flux_projection', 'route': 'cuda',
-        'source': 'tpu_sgp_torch/csrc/flux_projection.cu',
-        'replaces': 'tpu_sgp/experimental/pallas_projection.py:40',
-        'launches': launches, **kernel}, {
+        'name': 'flux_projection', **k1, 'launches': launches, **kernel}, {
+        'name': 'flux_projection_long_row', **k1,
+        'launches': frame_launches, **long_row}, {
         'name': 'stamp_solver', 'route': 'cuda',
         'source': 'tpu_sgp_torch/csrc/stamp_solver.cu',
         'replaces': 'tpu_sgp/experimental/pallas_batch.py:57', **k2}]}))

@@ -52,6 +52,35 @@ def test_plain_rows_match_jax_pallas(has_sat):
         assert np.isclose(got.max(-1), cap).any()   # the cap binds
 
 
+@pytest.mark.parametrize('has_sat', [False, True])
+@pytest.mark.parametrize('dtype,tol', [('float64', 1e-10), ('float32', 2e-5)])
+def test_plain_long_row_matches_jax_pallas(has_sat, dtype, tol):
+    """One long row, as a whole-frame solve gives the kernel (N = 5000,
+    padded by JAX to (40, 128) lane tiles): the plain version against
+    ``project_df_pallas`` in interpret mode, x within ``tol`` of max|x|.
+    float32 sums 5000 terms in another order than the interpreter, so the
+    last sectioning steps may pick the neighbouring segment."""
+    import jax.numpy as jnp
+    from tpu_sgp.experimental.pallas_projection import project_df_pallas
+    b, c, dia, scaling, sat = _rows(np.random.default_rng(9), rows=1, n=5000)
+    # a frame's flux grows with its pixels: the stamps' flux a pixel
+    b, sat = b * (5000 / 961), sat * (5000 / 961)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    t = lambda a: torch.as_tensor(a, dtype=tdt)
+    got = tproj.project_df_pallas(t(b), t(c), t(dia), t(scaling),
+                                  sat_level=t(sat) if has_sat else None,
+                                  has_sat=has_sat)
+    assert got.dtype == tdt and got.shape == (1, 5000)
+    j = lambda a: jnp.asarray(a, jdt)
+    want = np.asarray(project_df_pallas(
+        j(b[0]), j(c[0]), j(dia[0]), j(scaling[0]),
+        sat_level=j(sat[0]) if has_sat else None, has_sat=has_sat))
+    assert want.dtype == np.dtype(dtype)
+    err = np.abs(got[0].numpy() - want).max() / np.abs(want).max()
+    assert err <= tol, err
+    np.testing.assert_allclose(got.double().sum(-1).numpy(), b, rtol=10 * tol)
+
+
 @pytest.mark.parametrize('dtype,rtol', [(torch.float32, 1e-5),
                                         (torch.float64, 1e-12)])
 def test_flux_conserved(dtype, rtol):
@@ -319,3 +348,62 @@ def test_method_on_card_matches_cpu(method, dtype):
     if dtype == torch.float64:
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-10
     np.testing.assert_allclose(got.double().sum(-1).numpy(), b, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize('has_sat', [False, True])
+# a whole frame as one row, a ragged last block, several long rows, and a
+# row that fills its last block exactly
+@pytest.mark.parametrize('rows,n', [(1, 168100), (1, 2049), (4, 65536),
+                                    (3, 5000), (2, 4096)])
+@pytest.mark.parametrize('path', ['auto', 'grid', 'rows'])
+def test_long_rows_on_card_match_plain(dtype, tol, has_sat, rows, n, path):
+    """Rows above 2048 pixels: the launcher's own choice is the grid path
+    (each row split over many blocks); forced, the grid path and the
+    one-block-a-row path both agree with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernel has no CPU mode')
+    from tpu_sgp_torch.kernels.flux_projection import launch_plan
+    b, c, dia, scaling, sat = _rows(np.random.default_rng(rows + n), rows, n)
+    # a frame's flux grows with its pixels: the stamps' flux a pixel
+    b, sat = b * (n / 961), sat * (n / 961)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device='cuda')
+    cap = t(sat / scaling) if has_sat else torch.zeros(rows, dtype=dtype,
+                                                       device='cuda')
+    steps = tproj.section_steps(dtype)
+    chosen, scratch, blocks = launch_plan(rows, n, dtype, path, 0)
+    assert chosen == ('rows' if path == 'rows' else 'grid')
+    assert (scratch > 0 and blocks > rows) == (chosen == 'grid')
+    before = project_rows.launches, project_rows.grid_launches
+    got = project_rows(t(b), t(c), t(dia), cap, steps, has_sat, path=path)
+    want = project_rows_plain(t(b), t(c), t(dia), cap, steps, has_sat)
+    torch.cuda.synchronize()
+    assert project_rows.launches == before[0] + 1
+    assert project_rows.grid_launches == before[1] + (chosen == 'grid')
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= tol
+    np.testing.assert_allclose(got.double().sum(-1).cpu().numpy(), b,
+                               rtol=1e-4 if dtype == torch.float32 else 1e-9)
+
+
+@pytest.mark.cuda
+def test_many_long_rows_keep_one_block_a_row_and_a_grid_too_large_raises():
+    """More long rows than the card holds blocks for: the launcher keeps
+    one block a row; forcing the grid path raises instead of hanging."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernel has no CPU mode')
+    from tpu_sgp_torch.kernels.flux_projection import launch_plan
+    rows, n = 3000, 4096
+    assert launch_plan(rows, n, torch.float32, 'auto', 0)[0] == 'rows'
+    b, c, dia, scaling, sat = _rows(np.random.default_rng(3), rows, n)
+    b, sat = b * (n / 961), sat * (n / 961)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device='cuda')
+    cap = t(sat / scaling)
+    got = project_rows(t(b), t(c), t(dia), cap, 10, True)
+    want = project_rows_plain(t(b), t(c), t(dia), cap, 10, True)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    with pytest.raises(RuntimeError, match='grid path'):
+        project_rows(t(b), t(c), t(dia), cap, 10, True, path='grid')
+    torch.cuda.synchronize()

@@ -169,9 +169,12 @@ def test_restore_stamps_argument_checks():
         tsgp.restore_stamps(stamps, psf, bkgs, cfg, fluxes=fluxes,
                             sat_level=65000.0, mesh=object(),
                             device='cpu')
-    with pytest.raises(NotImplementedError, match='per-stamp'):
+    # per-stamp PSFs are ported; the flat layout still needs a shared one
+    # (batch.py:352-353)
+    with pytest.raises(ValueError, match='shared PSF'):
         tsgp.restore_stamps(stamps, np.stack([psf] * 4), bkgs, cfg,
-                            fluxes=fluxes, sat_level=65000.0, device='cpu')
+                            fluxes=fluxes, sat_level=65000.0, flatten=True,
+                            device='cpu')
 
 
 def test_numpy_inputs_follow_device_and_tensors_stay():

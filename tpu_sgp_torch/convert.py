@@ -28,6 +28,32 @@ def config_from_jax(fields: dict) -> SGPConfig:
     return SGPConfig(**fields)
 
 
+# Fields added after a release default on load so that older checkpoints
+# keep resuming (checkpoint.py:22-32): the warm projection's carry starts
+# cold. Defaults take fv's shape.
+_FIELD_DEFAULTS = {
+    'lam_dual': lambda st: np.full(np.shape(st['fv']), np.nan,
+                                   np.asarray(st['fv']).dtype),
+    'dlam_dual': lambda st: np.full(np.shape(st['fv']), np.inf,
+                                    np.asarray(st['fv']).dtype),
+}
+
+
+def fill_missing(items: dict) -> dict:
+    """A checkpoint's arrays by field name, in the state's order, absent
+    fields defaulted (``_fill_missing``, ``checkpoint.py:35-45``)."""
+    out = {}
+    for k in SGPState._fields:
+        if k in items:
+            out[k] = items[k]
+        elif k in _FIELD_DEFAULTS:
+            out[k] = _FIELD_DEFAULTS[k](items)
+        else:
+            raise KeyError(f'checkpoint missing field {k!r} and no '
+                           'default exists')
+    return out
+
+
 def state_from_numpy(arrays: dict, device=None,
                      dtype: torch.dtype = torch.float64) -> SGPState:
     """An ``SGPState`` from the field name -> numpy array layout of
@@ -38,13 +64,8 @@ def state_from_numpy(arrays: dict, device=None,
     ``dlam_dual``, absent from older checkpoints, default as
     ``checkpoint.py:27-32`` defaults them."""
     device = resolve_device(device)
-    arrays = dict(arrays)
+    arrays = fill_missing(arrays)
     fv = np.asarray(arrays['fv'])
-    arrays.setdefault('lam_dual', np.full(fv.shape, np.nan))
-    arrays.setdefault('dlam_dual', np.full(fv.shape, np.inf))
-    missing = [k for k in SGPState._fields if k not in arrays]
-    if missing:
-        raise KeyError(f'state is missing fields {missing}')
     if fv.ndim != 1:
         raise ValueError(f'expected a batched state (fv of shape (B,)), got '
                          f'fv of shape {fv.shape}')

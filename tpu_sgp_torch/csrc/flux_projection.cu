@@ -34,11 +34,27 @@
 // - Longer rows take one 256-thread block a row, reducing the 7 sums
 //   together through double-buffered warp partials (one barrier a step);
 //   rows up to 2048 pixels sit in registers, longer ones are streamed from
-//   memory on each pass. The launcher picks the path by N; neither is a
-//   fallback for the other.
+//   memory on each pass.
+// - A few rows too long for that (a whole 410x410 frame is one row of
+//   168100 pixels, and one block a row would leave 131 of 132 SMs idle) are
+//   split over the grid: a block keeps kGridPer pixels a thread of c and
+//   1/dia in registers for every step, so device memory is still read once,
+//   and each step's 7 sums are reduced over the row's blocks through a small
+//   scratch buffer between two grid-wide barriers (a cooperative launch and
+//   grid.sync()). Every block then adds the row's partials in the same
+//   order, so all of them narrow the bracket identically. Each step's
+//   bracket depends on the previous step's sums over the whole row, so all
+//   blocks of a row must wait for each other whatever the scheme; a
+//   cooperative launch is the one way the CUDA runtime guarantees that they are
+//   all resident, and it refuses a grid that is not, where a hand-made
+//   barrier would hang. What bounds this path is the 1 + n_steps barriers,
+//   a few microseconds each, not bytes or operations.
+// The launcher picks the path from N and the number of rows; none is a
+// fallback for another.
 // The TPU version's (rows, 128) padding and sentinel pixels become a bounds
 // check on the ragged edge.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -47,6 +63,8 @@
 #include "reduce.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using tpu_sgp::warp_max;
 using tpu_sgp::warp_min;
@@ -60,6 +78,10 @@ constexpr int kRowWarps = 4;         // warp path: rows (warps) a block
 template <typename T>
 constexpr int kWarpRowMax = sizeof(T) == 4 ? 32 * 32 : 32 * 16;
 constexpr int kK = 7;  // interior section points per step
+constexpr int kGridPer = 4;  // grid path: pixels a thread
+constexpr int kGridChunk = kThreads * kGridPer;  // grid path: pixels a block
+constexpr int kSlots = kK + 1;  // grid path: scratch values a block a phase
+static_assert(kWarps >= kK, "one warp adds the partials of one section point");
 
 __device__ __forceinline__ float dev_max(float a, float b) {
   return fmaxf(a, b);
@@ -295,6 +317,145 @@ project_rows_kernel(const T* __restrict__ b, const T* __restrict__ c,
   });
 }
 
+// Grid path: block blockIdx.x serves pixels [part * PER * kThreads, ...) of
+// row blockIdx.x / bpr, i = base + tid + j * kThreads for j < PER. Phase p
+// (the bracket is phase 0, step s is phase s + 1) writes plane p & 1 of
+// ``scratch``, laid out [plane][row][slot][part]; a block writes phase p + 2
+// only after the grid barrier of phase p + 1, which every block reaches
+// after its reads of phase p. The partials are read with __ldcg: they were
+// written by other SMs, whose stores an L1 line filled two phases ago
+// would hide.
+template <typename T, int PER>
+__global__ void __launch_bounds__(kThreads)
+project_rows_grid_kernel(const T* __restrict__ b, const T* __restrict__ c,
+                         const T* __restrict__ dia,
+                         const T* __restrict__ cap, T* __restrict__ out,
+                         T* scratch, int rows, int n, int n_steps,
+                         int has_sat, int bpr) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ T red[kSlots][kWarps];
+  __shared__ T tot[kSlots];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row = blockIdx.x / bpr;
+  const int part = blockIdx.x - row * bpr;
+  const size_t off = static_cast<size_t>(row) * n;
+  const int base = part * (PER * kThreads);
+  const T brow = b[row];
+  const T caprow = has_sat ? cap[row] : T(CUDART_INF);
+  const size_t plane = static_cast<size_t>(rows) * kSlots * bpr;
+  T* const mine = scratch + static_cast<size_t>(row) * kSlots * bpr;
+
+  // Pixels and this block's share of the bracket
+  // (pallas_projection.py:104-108).
+  T cv[PER], inv[PER];
+  T lo = T(CUDART_INF), hi = -T(CUDART_INF);
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = base + tid + j * kThreads;
+    cv[j] = T(0);
+    inv[j] = T(0);
+    if (i < n) {
+      const T ci = c[off + i], di = dia[off + i];
+      cv[j] = ci;
+      inv[j] = T(1) / di;
+      const T neg = -ci;
+      const T top = brow * di - ci;
+      lo = neg < lo ? neg : lo;
+      hi = top > hi ? top : hi;
+    }
+  }
+  lo = warp_min(lo);
+  hi = warp_max(hi);
+  if (lane == 0) {
+    red[0][warp] = lo;
+    red[1][warp] = hi;
+  }
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      lo = red[0][w] < lo ? red[0][w] : lo;
+      hi = red[1][w] > hi ? red[1][w] : hi;
+    }
+    mine[part] = lo;
+    mine[bpr + part] = hi;
+  }
+  grid.sync();
+  if (warp < 2) {
+    T v = warp == 0 ? T(CUDART_INF) : -T(CUDART_INF);
+    for (int j = lane; j < bpr; j += 32) {
+      const T o = __ldcg(mine + warp * bpr + j);
+      v = warp == 0 ? (o < v ? o : v) : (o > v ? o : v);
+    }
+    v = warp == 0 ? warp_min(v) : warp_max(v);
+    if (lane == 0) tot[warp] = v;
+  }
+  __syncthreads();
+  lo = tot[0];
+  hi = tot[1];
+  const T lo1 = lo + T(1);
+  hi = hi > lo1 ? hi : lo1;
+
+  for (int s = 0; s < n_steps; ++s) {
+    T* const buf = mine + ((s + 1) & 1) * plane;
+    const T seg = (hi - lo) / T(kK + 1);
+    T lam[kK], sum[kK];
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      lam[k] = lo + seg * T(k + 1);
+      sum[k] = T(0);
+    }
+    // pad pixels hold c = 0 and 1/dia = 0, so they add x = 0: no check
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+#pragma unroll
+      for (int k = 0; k < kK; ++k)
+        sum[k] += xval(cv[j], inv[j], lam[k], caprow);
+    }
+#pragma unroll
+    for (int k = 0; k < kK; ++k) sum[k] = warp_sum(sum[k]);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < kK; ++k) red[k][warp] = sum[k];
+    }
+    __syncthreads();
+    if (tid < kK) {
+      T r = red[tid][0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) r += red[tid][w];
+      buf[tid * bpr + part] = r;
+    }
+    grid.sync();
+    // warp k adds the row's partials of section point k, in the same order
+    // in every block of the row
+    if (warp < kK) {
+      T v = T(0);
+      for (int j = lane; j < bpr; j += 32) v += __ldcg(buf + warp * bpr + j);
+      v = warp_sum(v);
+      if (lane == 0) tot[warp] = v;
+    }
+    __syncthreads();
+    // Sign census of the residual r - b at the 7 points: the root lies
+    // nbelow segments above lo (pallas_projection.py:53-61).
+    T nbelow = T(0);
+#pragma unroll
+    for (int k = 0; k < kK; ++k)
+      if (tot[k] - brow < T(0)) nbelow += T(1);
+    lo = lo + nbelow * seg;
+    hi = lo + seg;
+  }
+
+  const T mid = T(0.5) * (lo + hi);
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = base + tid + j * kThreads;
+    if (i < n) out[off + i] = xval(cv[j], inv[j], mid, caprow);
+  }
+}
+
 // The kernel for rows of n pixels and its grid: the warp path for
 // n <= kWarpRowMax<T>, else the block path.
 template <typename T>
@@ -327,26 +488,81 @@ Plan<T> plan(int n, int rows) {
   return {project_rows_kernel<T, 0>, rows, kThreads, block, 0};
 }
 
+// Which path serves (rows, n). kPathAuto is the launcher's own rule; the
+// other two are for measurements that hold one path against another.
+enum Path { kPathAuto = 0, kPathRows = 1, kPathGrid = 2 };
+
+// Blocks of the grid kernel that the device holds at once.
+template <typename T>
+cudaError_t grid_capacity(int device, int* blocks) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, project_rows_grid_kernel<T, kGridPer>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *blocks = per_sm * sms;
+  return err;
+}
+
+// The grid path takes rows that the block path would stream from memory,
+// when all their blocks are resident at once: few long rows. Many long
+// rows fill the card with one block a row as it is.
+template <typename T>
+cudaError_t choose(int rows, int n, int device, int* path) {
+  if (*path != kPathAuto) return cudaSuccess;
+  *path = kPathRows;
+  if (n <= 8 * kThreads) return cudaSuccess;
+  int capacity = 0;
+  const cudaError_t err = grid_capacity<T>(device, &capacity);
+  const long long need =
+      static_cast<long long>(rows) * ((n + kGridChunk - 1) / kGridChunk);
+  if (err == cudaSuccess && need <= capacity) *path = kPathGrid;
+  return err;
+}
+
 template <typename T>
 int launch(const void* b, const void* c, const void* dia, const void* cap,
-           void* out, int rows, int n, int n_steps, int has_sat, int device,
-           void* stream) {
+           void* out, void* scratch, int rows, int n, int n_steps,
+           int has_sat, int path, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Plan<T> p = plan<T>(n, rows);
+  err = choose<T>(rows, n, device, &path);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
-  p.kernel<<<p.blocks, p.threads, 0, s>>>(
-      static_cast<const T*>(b), static_cast<const T*>(c),
-      static_cast<const T*>(dia), static_cast<const T*>(cap),
-      static_cast<T*>(out), rows, n, n_steps, has_sat);
+  const T* bp = static_cast<const T*>(b);
+  const T* cp = static_cast<const T*>(c);
+  const T* dp = static_cast<const T*>(dia);
+  const T* capp = static_cast<const T*>(cap);
+  T* op = static_cast<T*>(out);
+  if (path == kPathGrid) {
+    // A cooperative launch: the runtime starts it only if every block is
+    // resident at once, and returns cudaErrorCooperativeLaunchTooLarge
+    // otherwise, so grid.sync() cannot hang.
+    T* sp = static_cast<T*>(scratch);
+    int bpr = (n + kGridChunk - 1) / kGridChunk;
+    void* args[] = {&bp, &cp, &dp, &capp, &op, &sp, &rows, &n,
+                    &n_steps, &has_sat, &bpr};
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(project_rows_grid_kernel<T, kGridPer>),
+        dim3(rows * bpr), dim3(kThreads), args, 0, s);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  }
+  const Plan<T> p = plan<T>(n, rows);
+  p.kernel<<<p.blocks, p.threads, 0, s>>>(bp, cp, dp, capp, op, rows, n,
+                                          n_steps, has_sat);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int occupancy(int n, char* name, int len, int* blocks) {
+  const char type = sizeof(T) == 4 ? 'f' : 'd';
+  if (n < 0) {
+    snprintf(name, len, "project_rows_grid_kernel<%c,%d>", type, kGridPer);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, project_rows_grid_kernel<T, kGridPer>, kThreads, 0));
+  }
   const Plan<T> p = plan<T>(n, 1);
-  snprintf(name, len, "%s<%c,%d>", p.name, sizeof(T) == 4 ? 'f' : 'd',
-           p.per);
+  snprintf(name, len, "%s<%c,%d>", p.name, type, p.per);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, p.kernel, p.threads, 0));
 }
@@ -354,40 +570,68 @@ int occupancy(int n, char* name, int len, int* blocks) {
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Pointers are device pointers of
-// contiguous (rows,) b and cap and (rows, n) c, dia and out; stream is a
+// contiguous (rows,) b and cap and (rows, n) c, dia and out; scratch holds
+// what tpu_sgp_project_rows_plan asks for; path is 0 (the launcher's rule),
+// 1 (one warp or one block a row) or 2 (the grid path); stream is a
 // cudaStream_t. Returns the launch's cudaError_t (0 on success).
 extern "C" int tpu_sgp_project_rows_f32(const void* b, const void* c,
                                         const void* dia, const void* cap,
-                                        void* out, int rows, int n,
-                                        int n_steps, int has_sat, int device,
-                                        void* stream) {
-  return launch<float>(b, c, dia, cap, out, rows, n, n_steps, has_sat,
-                       device, stream);
+                                        void* out, void* scratch, int rows,
+                                        int n, int n_steps, int has_sat,
+                                        int path, int device, void* stream) {
+  return launch<float>(b, c, dia, cap, out, scratch, rows, n, n_steps,
+                       has_sat, path, device, stream);
 }
 
 extern "C" int tpu_sgp_project_rows_f64(const void* b, const void* c,
                                         const void* dia, const void* cap,
-                                        void* out, int rows, int n,
-                                        int n_steps, int has_sat, int device,
-                                        void* stream) {
-  return launch<double>(b, c, dia, cap, out, rows, n, n_steps, has_sat,
-                        device, stream);
+                                        void* out, void* scratch, int rows,
+                                        int n, int n_steps, int has_sat,
+                                        int path, int device, void* stream) {
+  return launch<double>(b, c, dia, cap, out, scratch, rows, n, n_steps,
+                        has_sat, path, device, stream);
+}
+
+// What a launch of (rows, n) with ``path`` will do: ``chosen`` is 1 (one
+// warp or one block a row) or 2 (the grid path), ``scratch`` the elements
+// of scratch it needs (0 for path 1) and ``blocks`` its grid. Returns the
+// cudaError_t of the device queries.
+extern "C" int tpu_sgp_project_rows_plan(int rows, int n, int is_f64,
+                                         int path, int device, int* chosen,
+                                         long long* scratch, int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = is_f64 ? choose<double>(rows, n, device, &path)
+               : choose<float>(rows, n, device, &path);
+  *chosen = path;
+  const int bpr = (n + kGridChunk - 1) / kGridChunk;
+  if (path == kPathGrid) {
+    *scratch = 2LL * rows * kSlots * bpr;
+    *blocks = rows * bpr;
+  } else {
+    *scratch = 0;
+    *blocks = is_f64 ? plan<double>(n, rows).blocks
+                     : plan<float>(n, rows).blocks;
+  }
+  return static_cast<int>(err);
 }
 
 // Instantiation i of the kernels (float32 then float64, each at the
 // largest n it takes: 32 .. 1024 the warp path in float32, up to 512 in
-// float64, the block path above): its name, that n (0: any), and its
-// resident blocks an SM. Returns -1 past the last, else the cudaError_t.
+// float64, the block path above, and last the grid path): its name, that n
+// (0: any), and its resident blocks an SM. Returns -1 past the last, else
+// the cudaError_t.
 extern "C" int tpu_sgp_flux_projection_occupancy(int i, int device,
                                                  char* name, int len, int* n,
                                                  int* blocks) {
-  static const int kSizes[] = {32, 64, 128, 256, 512, 1024, 2048, 0};
+  static const int kSizes[] = {32, 64, 128, 256, 512, 1024, 2048, 0, -1};
   constexpr int kCount = sizeof(kSizes) / sizeof(kSizes[0]);
   if (i < 0 || i >= 2 * kCount) return -1;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *n = kSizes[i % kCount];
-  const int size = *n ? *n : 1 << 30;
-  return i < kCount ? occupancy<float>(size, name, len, blocks)
-                    : occupancy<double>(size, name, len, blocks);
+  const int size = kSizes[i % kCount];
+  *n = size > 0 ? size : 0;
+  const int arg = size == 0 ? 1 << 30 : size;
+  return i < kCount ? occupancy<float>(arg, name, len, blocks)
+                    : occupancy<double>(arg, name, len, blocks);
 }

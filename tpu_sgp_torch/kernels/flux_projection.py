@@ -12,7 +12,9 @@ hi = max(max(b*dia - c), lo + 1) (``pallas_projection.py:104-108``).
 
 ``project_rows`` launches ``csrc/flux_projection.cu`` for CUDA tensors and
 calls ``project_rows_plain`` for CPU tensors; a CUDA call that cannot
-launch raises, it never falls back.
+launch raises, it never falls back. The batched solver gives it (B, 961)
+stamps, one warp a row; a whole-frame solve gives it one row of H * W
+pixels, which the kernel splits over the card's SMs.
 """
 from __future__ import annotations
 
@@ -53,27 +55,60 @@ def project_rows_plain(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
 
 _ENTRY = {torch.float32: 'tpu_sgp_project_rows_f32',
           torch.float64: 'tpu_sgp_project_rows_f64'}
+# which kernel serves a launch: the launcher's own rule, or one path forced
+# for a measurement ('rows': one warp or one block a row; 'grid': a long
+# row split over many blocks)
+_PATHS = {'auto': 0, 'rows': 1, 'grid': 2}
 
 
 @functools.cache
 def _entry(dtype: torch.dtype):
     from ._build import load_library
     fn = getattr(load_library('flux_projection'), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def launch_plan(rows: int, n: int, dtype: torch.dtype, path: str = 'auto',
+                device: int = 0) -> tuple:
+    """What the launcher does with a (rows, n) batch on ``device``:
+    ``(path, scratch elements, blocks)``, where path is ``'rows'`` (one
+    warp or one block a row) or ``'grid'`` (each row split over many
+    blocks, all resident at once). ``'auto'`` takes the grid path for rows
+    above 2048 pixels whose blocks all fit on the card together."""
+    from ._build import load_library
+    fn = load_library('flux_projection').tpu_sgp_project_rows_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int),
+                                        ctypes.POINTER(ctypes.c_longlong),
+                                        ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    chosen, scratch, blocks = ctypes.c_int(), ctypes.c_longlong(), \
+        ctypes.c_int()
+    err = fn(rows, n, int(dtype == torch.float64), _PATHS[path], device,
+             ctypes.byref(chosen), ctypes.byref(scratch),
+             ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f'flux projection launch plan failed: CUDA '
+                           f'error {err}')
+    return ('rows', 'grid')[chosen.value - 1], scratch.value, blocks.value
+
+
 def project_rows(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
                  cap: torch.Tensor, n_steps: int,
-                 has_sat: bool) -> torch.Tensor:
+                 has_sat: bool, path: str = 'auto') -> torch.Tensor:
     """Project every row of ``c`` (B, N) under the metric ``dia`` (B, N)
     onto {x : sum(x) = b, 0 <= x <= cap}. ``b`` and ``cap`` are (B,).
 
     CPU tensors take ``project_rows_plain``. CUDA tensors launch the
-    kernel, one thread block per row, and ``project_rows.launches`` counts
-    the launches."""
+    kernel: one warp or one block a row, or, for a few rows longer than
+    2048 pixels (one whole frame), each row split over many blocks
+    (``launch_plan``). ``path`` forces one of the two for a measurement;
+    a grid path that does not fit on the card raises.
+    ``project_rows.launches`` counts the launches and
+    ``project_rows.grid_launches`` those that took the grid path."""
     if not c.is_cuda:
         return project_rows_plain(b, c, dia, cap, n_steps, has_sat)
     if c.dim() != 2:
@@ -97,15 +132,21 @@ def project_rows(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
     out = torch.empty_like(c)
     if rows == 0:
         return out
+    chosen, scratch_len, _ = launch_plan(rows, n, c.dtype, path,
+                                         c.device.index)
+    scratch = torch.empty(scratch_len, dtype=c.dtype, device=c.device)
     stream = torch.cuda.current_stream(c.device)
     err = _entry(c.dtype)(b.data_ptr(), c.data_ptr(), dia.data_ptr(),
-                          cap.data_ptr(), out.data_ptr(), rows, n, n_steps,
-                          int(has_sat), c.device.index, stream.cuda_stream)
+                          cap.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                          rows, n, n_steps, int(has_sat), _PATHS[chosen],
+                          c.device.index, stream.cuda_stream)
     if err != 0:
-        raise RuntimeError(f'flux projection kernel launch failed: CUDA '
-                           f'error {err}')
+        raise RuntimeError(f'flux projection kernel launch failed ({chosen} '
+                           f'path, {rows} rows of {n}): CUDA error {err}')
     project_rows.launches += 1
+    project_rows.grid_launches += chosen == 'grid'
     return out
 
 
 project_rows.launches = 0
+project_rows.grid_launches = 0

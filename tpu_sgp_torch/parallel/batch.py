@@ -58,8 +58,11 @@ def _batched_solve_two_phase(stamps, psf, bkgs, x0, fluxes, obj, beta0, lr0,
         st_tail = SGPState(*(_take(a, idx) for a in st))
         args_tail = [_take(a, idx) for a in (stamps, bkgs, x0, fluxes, obj,
                                              beta0, lr0, sat)]
-        _, st_tail = resume_from_state(args_tail[0], psf, *args_tail[1:],
-                                       st_tail, cfg)
+        # per-stamp PSFs follow their lanes: the tail builds its operators
+        # from its own PSFs (batch.py:119)
+        psf_tail = _take(psf, idx) if psf.dim() == 3 else psf
+        _, st_tail = resume_from_state(args_tail[0], psf_tail,
+                                       *args_tail[1:], st_tail, cfg)
         st = SGPState(*(full.index_copy(0, idx, part)
                         for full, part in zip(st, st_tail)))
 
@@ -192,7 +195,16 @@ def restore_stamps(stamps, psf, bkgs, cfg: SGPConfig, *, fluxes=None,
 
     Args:
       stamps: (B, H, W) observed cutouts, numpy or torch.
-      psf: (H, W) shared PSF. Per-stamp (B, H, W) PSFs are not ported.
+      psf: (H, W) shared PSF, or (B, H, W) per-stamp PSFs: each stamp
+        then gets its own operator (``batch.py:38-42``). For stamps up to
+        64x64 that is the dense circulant, a (B, N, N) stack applied as
+        one batched product: 3.7 MB a stamp at 31x31 in float32, so an
+        80 GB card holds the matrices of about 20000 stamps and nothing
+        else (half that in float64); larger batches go in several calls
+        or with ``cfg.operator='otf'``, which keeps one (H, W/2+1)
+        spectrum a stamp. The matrices are built inside each solve from
+        the PSFs of the lanes it runs, so a compaction tail builds its
+        own ``tail_bucket`` of them and not the whole call's.
       bkgs: scalar, (B,) or (B, H, W) background levels.
       cfg: solver configuration.
       bucket: pad the batch to a standard bucket size (repeating the first
@@ -225,9 +237,6 @@ def restore_stamps(stamps, psf, bkgs, cfg: SGPConfig, *, fluxes=None,
             f'saturation level or use a config with has_sat_level=False.')
     if mesh is not None:
         raise NotImplementedError('mesh is not ported yet (ROADMAP A13)')
-    if np.ndim(psf) == 3:
-        raise NotImplementedError('per-stamp PSFs are not ported yet '
-                                  '(ROADMAP A7)')
     if cfg.stable_sums == 'auto':
         # batches default to plain sums (batch.py:322-329)
         cfg = cfg.replace(stable_sums=False)
@@ -247,6 +256,8 @@ def restore_stamps(stamps, psf, bkgs, cfg: SGPConfig, *, fluxes=None,
     if flatten:
         # raveled (B, H*W) rows: the dense operator is one matrix product
         # over the batch (batch.py:343-360)
+        if psf.dim() == 3:
+            raise ValueError('flatten requires a shared PSF')
         if cfg.operator not in ('auto', 'matmul', 'matmul_flat',
                                 'matmul_split'):
             raise ValueError('flatten requires the dense matmul operator')

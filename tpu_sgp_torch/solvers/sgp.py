@@ -9,14 +9,17 @@ freezes the lanes that stopped; the outer loop below does the same with
 follows the trajectory it would follow alone.
 
 Images are raveled to (B, N) rows inside the solver; results come back in
-the input's image shape.
+the input's image shape. The PSF operator is built for the image shape and
+applied to the rows (the FFT operators reshape inside), so one image of any
+size is a batch of one: a 410x410 frame is a single row of 168100 pixels.
 
 Supported: the KL and beta divergences (beta adaptation in the line
 search, the learning-rate schedule), ``proj_type`` 0 and 1 with every
 projection method (``'pallas'`` runs the CUDA kernel on the card and its
 plain version on the CPU) and the warm-started bisection, init modes 0-3,
-stop rules 0-4, ``track_discr`` and ``errflag``. Mesh axes (ROADMAP A13)
-and ``save`` raise ``NotImplementedError``.
+stop rules 0-4, ``track_discr`` and ``errflag``, every operator but
+``'halo'``, a shared (H, W) PSF or one PSF a lane (B, H, W). Mesh axes
+(ROADMAP A13) and ``save`` (A11) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -68,6 +71,10 @@ class SGPState(NamedTuple):
     dlam_dual: torch.Tensor
 
 
+# the fields of SGPState that hold one value a pixel
+IMAGE_FIELDS = ('x', 'x_prev', 'g', 'x_tf')
+
+
 def check_supported(cfg: SGPConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not have yet."""
     if cfg.axis_names or cfg.sync_axes:
@@ -76,7 +83,8 @@ def check_supported(cfg: SGPConfig) -> None:
             '(ROADMAP A13)')
     if cfg.save:
         raise NotImplementedError(
-            'save=True (per-iteration FITS dump) is not ported')
+            'save=True (per-iteration FITS dump) is not ported yet: it '
+            "needs the port's own write_fits (ROADMAP A11)")
 
 
 def _use_stable(cfg: SGPConfig) -> bool:
@@ -117,8 +125,8 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
     bkg = (bkg.expand(nb) if bkg.dim() == 0 else bkg).reshape(nb, -1)
     eps = torch.finfo(dt).eps
 
-    # the dense operators apply to raveled (B, N) rows whatever the image
-    # shape they were built for
+    # built for the image shape, applied to the raveled (B, N) rows; a
+    # (B, H, W) PSF gives each lane its own operator
     A, AT = make_operator(psf, shape, cfg.operator)
 
     def col(v):
@@ -424,6 +432,10 @@ def _resume_state(rstate: SGPState, cfg: SGPConfig, series: int
     """Resume bookkeeping (``sgp.py:538-564``): grow the tracked series
     buffers to the new budget, and continue unless a stop rule fired."""
     state = SGPState(*rstate)
+    # a checkpoint may hold the image-shaped fields as (B, H, W), as a
+    # vmapped JAX solve on (H, W) images keeps them: the loop works on rows
+    state = state._replace(**{name: getattr(state, name).reshape(
+        state.fv.shape[0], -1) for name in IMAGE_FIELDS})
     for name, flag in (('discr', cfg.track_discr), ('err', cfg.errflag)):
         buf = getattr(state, name)
         if flag and buf.shape[1] <= 1:
@@ -450,7 +462,7 @@ def solve(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
     ``gn`` is (B, *image shape): a tensor computes on its own device, an
     array on ``device`` (the card unless the caller passes ``'cpu'``);
     ``psf`` is the shared
-    PSF; ``bkg`` is (B,) or (B, *image shape); ``flux_in``, ``beta0``,
+    (H, W) PSF or (B, H, W), one a lane; ``bkg`` is (B,) or (B, *image shape); ``flux_in``, ``beta0``,
     ``lr0`` and ``sat_level`` are (B,) or scalars; ``x0`` and ``obj`` are
     read only when ``init_recon=1`` and ``errflag`` ask for them."""
     return _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0,
