@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--from N]
 
-With ``--from N`` (13 to 23) phases 3 to N - 1 are skipped and no result is
+With ``--from N`` (13 to 28) phases 3 to N - 1 are skipped and no result is
 printed: a short run for work on the later phases.
 
 Phases, one line of output each (or a few):
@@ -85,7 +85,22 @@ Phases, one line of output each (or a few):
  22. ``beta_init_search`` with its default ``'catalog'`` scorer on 256
      stamps: the host catalog's seconds beside the solve's, which
      deblender ran, and the card's choice against the CPU's in float64;
- 23. ``save=True`` on a 64x64 frame: the FITS files of three iterations.
+ 23. ``save=True`` on a 64x64 frame: the FITS files of three iterations;
+ 24. the star-stamp application, ``workloads.star_stamps.run`` at its
+     defaults (256 stamps, KL and beta): its wall split into the host
+     catalog's and the card's seconds, iterations, flux, the metric arrays;
+     64 stamps in float64 on the card against the CPU;
+ 25. the subdivision application, ``workloads.subdivisions.run()`` at its
+     defaults (the crowded 410x410 frame, KL and the beta candidate
+     search), the same split; float64 at ``maxit=20`` against the CPU;
+ 26. the spatial-PSF application, ``restore_with_spatial_psf`` on a
+     2048x2048 frame in 100x100 tiles, a local PSF each from a seeded DIAPL
+     model, one batch: tiles, renderer, peak device memory; a 256x256 cut
+     in float64 against the CPU;
+ 27. the simulation application, ``workloads.simulation.run_all`` on
+     seeded 255x255 fixtures in the SGP-dec layout, card against CPU;
+ 28. the ``sgp`` command line, ``cli.main`` on a 410x410 FITS pair with a
+     TAN WCS header, whole-image and ``--use_subdiv``.
 
 Then a JSON line of the kernels, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -95,6 +110,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1646,7 +1662,458 @@ def phase_save(torch) -> None:
           'rec_2 is the returned x in working units')
 
 
+# ---- phases 24-28: the applications -------------------------------------------
+
+class SplitTimer:
+    """Exclusive host seconds a category of calls takes inside one
+    application run: each wrapped name is replaced in its module for the
+    run, a call into the card ends in ``torch.cuda.synchronize()``, and a
+    wrapped call inside another is counted to its own category only."""
+
+    def __init__(self, torch, patches):
+        self.torch, self.patches = torch, patches
+        self.seconds = {kind: 0.0 for _, _, kind in patches}
+        self._stack, self._saved = [], []
+
+    def _wrap(self, fn, kind):
+        def timed(*args, **kwargs):
+            self._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                if kind == 'card':
+                    self.torch.cuda.synchronize()
+                return out
+            finally:
+                total = time.perf_counter() - t0
+                self.seconds[kind] += total - self._stack.pop()
+                if self._stack:
+                    self._stack[-1] += total
+        return timed
+
+    def __enter__(self):
+        for module, name, kind in self.patches:
+            self._saved.append((module, name, getattr(module, name)))
+            setattr(module, name, self._wrap(getattr(module, name), kind))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self._saved):
+            setattr(module, name, fn)
+
+    def line(self, wall: float) -> str:
+        return ', '.join(f'{kind} {s:.4f} s ({100 * s / wall:.1f} %)'
+                         for kind, s in self.seconds.items())
+
+
+def catalog_patches(module) -> list:
+    """The host catalog's entry points as ``module`` and the library reach
+    them: ``source_info`` / ``source_info_batch`` by the module's own names,
+    and ``beta_init_search``'s scorer in its own module."""
+    from tpu_sgp_torch.catalog import batched
+    return ([(module, name, 'host catalog')
+             for name in ('source_info', 'source_info_batch')
+             if hasattr(module, name)]
+            + [(batched, 'brightest_catalog_fluxes', 'host catalog')])
+
+
+def iters_line(iters) -> str:
+    it = np.asarray(iters)
+    return (f'iterations median {np.median(it):g}, p90 '
+            f'{np.percentile(it, 90):g}, max {it.max()}, n {it.size}')
+
+
+def f64_workload(module):
+    """``module._workload_cfg`` in float64 (a patch for this run only)."""
+    orig = module._workload_cfg
+    module._workload_cfg = lambda *a, **k: orig(*a, **k).replace(
+        dtype='float64')
+    return orig
+
+
+# phase 24, float64 card against CPU: the catalog metrics within 1e-7 on
+# 95 % of the lanes (a catalog is not continuous in x: a pixel at the
+# detection threshold moves a segment, 3.5e-4 of FFD on one of 64 lanes
+# for restorations 1.5e-11 apart), the radial-profile distance by its
+# median (a least-squares fit that stops at its own tolerance)
+APP_METRICS = ('FLUX_FRACTIONAL_DIFFERENCE', 'FWHM_RATIO',
+               'ELLIPTICITY_RATIO', 'ORIG_FLUX', 'RESTORED_FLUX')
+
+
+def phase_star_stamps(torch, card: str) -> None:
+    """Phase 24: ``star_stamps.run`` at its defaults (256 synthetic stamps,
+    ``max_iter=500``, compaction 32, buckets), KL and beta, on the card.
+    Its wall split into the host catalog's seconds and the card's
+    (gather, scorer, metrics); every restoration finite, flux kept to
+    1e-4, the metric arrays written. Then 64 stamps in float64 on the card
+    and on the CPU: equal iterations lane for lane, restorations within
+    1e-7, the metrics as ``APP_METRICS`` says."""
+    import os
+    import tempfile
+
+    from tpu_sgp_torch.parallel import batch
+    from tpu_sgp_torch.workloads import star_stamps as ss
+    for use_beta in (False, True):
+        name = 'beta' if use_beta else 'kl'
+        seen = {}
+
+        def keep(key, fn):
+            def kept(*a, **k):
+                seen[key] = fn(*a, **k)
+                return seen[key]
+            return kept
+        gather, info_batch = ss.gather_synthetic, ss.source_info_batch
+        ss.gather_synthetic = keep('sset', gather)
+        ss.source_info_batch = lambda frames, **kw: (
+            seen.__setitem__('x', np.stack(frames)) or info_batch(frames, **kw))
+        patches = catalog_patches(ss) + [
+            (ss, 'restore_stamps', 'card'), (batch, 'restore_stamps', 'card')]
+        try:
+            with tempfile.TemporaryDirectory() as out:
+                with SplitTimer(torch, patches) as split:
+                    t0 = time.perf_counter()
+                    metrics = ss.run(use_beta_div=use_beta, out_dir=out)
+                    wall = time.perf_counter() - t0
+                files = sorted(os.listdir(out))
+        finally:
+            ss.gather_synthetic, ss.source_info_batch = gather, info_batch
+        x, sset = seen['x'], seen['sset']
+        flux_err = np.abs(x.sum(axis=(1, 2)) - sset.fluxes) / sset.fluxes
+        suffix = '_BETA' if use_beta else ''
+        print(f'star_stamps {name} B={len(sset.fluxes)} float32: wall '
+              f'{wall:.4f} s; {split.line(wall)}; '
+              f'{iters_line(metrics["NUM_ITERS"])}; median FWHM ratio '
+              f'{np.median(metrics["FWHM_RATIO"]):.4f}, FFD '
+              f'{np.median(metrics["FLUX_FRACTIONAL_DIFFERENCE"]):.4e}; '
+              f'max flux error {flux_err.max():.3e}; {len(files)} arrays '
+              f'[{card}]')
+        check(bool(np.isfinite(x).all()), f'{name}: finite restorations')
+        check(flux_err.max() <= FLUX_RTOL['float32'], f'{name}: flux kept')
+        check(files == sorted(f'{k}{suffix}.npy' for k in metrics)
+              and len(files) == 9, f'{name}: the metric arrays written')
+        check(len(metrics['NUM_ITERS']) == len(sset.fluxes) >= 200,
+              f'{name}: a metric for every stamp')
+
+        # float64, 64 stamps: the card against the CPU
+        orig = f64_workload(ss)
+        xs = []
+        ss.source_info_batch = lambda frames, **kw: (
+            xs.append(np.stack(frames)) or info_batch(frames, **kw))
+        try:
+            runs = [ss.run(use_beta_div=use_beta, n_synthetic=64, save=False,
+                           device=dev) for dev in ('cuda', 'cpu')]
+        finally:
+            ss._workload_cfg, ss.source_info_batch = orig, info_batch
+        (gpu, cpu), (xg, xc) = runs, xs
+        rel_x = float(np.abs(xg - xc).max() / np.abs(xc).max())
+        lane = {k: np.abs(np.subtract(gpu[k], cpu[k]))
+                / np.maximum(np.abs(cpu[k]), 1e-300)
+                for k in APP_METRICS + ('WD_RADIAL_PROFILE_DISTANCE',)}
+        off = {k: int((lane[k] > 1e-7).sum()) for k in APP_METRICS}
+        wd = float(np.median(lane['WD_RADIAL_PROFILE_DISTANCE']))
+        print(f'star_stamps {name} card vs cpu float64 B={len(xc)}: '
+              f'iterations equal {gpu["NUM_ITERS"] == cpu["NUM_ITERS"]}, x '
+              f'{rel_x:.3e}; lanes over 1e-7 by metric {off}, worst '
+              + ', '.join(f'{k} {lane[k].max():.3e}' for k in APP_METRICS)
+              + f'; radial profile distance median {wd:.3e} (limits: x '
+              f'1e-7, 95 % of lanes 1e-7, median 1e-5)')
+        check(gpu['NUM_ITERS'] == cpu['NUM_ITERS'],
+              f'{name} float64: equal iterations lane for lane')
+        check(rel_x <= 1e-7, f'{name} float64: x within 1e-7')
+        check(max(off.values()) <= 0.05 * len(xc) and wd <= 1e-5,
+              f'{name} float64: the metrics')
+
+
+def recorded_subdivisions(module, **kw) -> tuple:
+    """``module.run(**kw)`` with each solve's (beta, x, iterations) and
+    each restoration's catalog flux kept, in call order."""
+    solves, fluxes = [], []
+    saved = {n: getattr(module, n) for n in ('sgp', 'sgp_beta_div',
+                                             'source_info')}
+
+    def solve(fn):
+        def kept(*a, **k):
+            out = fn(*a, **k)
+            solves.append((k.get('betaParam'), out[0], out[1]))
+            return out
+        return kept
+
+    def info(*a, **k):
+        scat, bkg = saved['source_info'](*a, **k)
+        if k.get('n_pixels') == 1 and scat is not None:
+            fluxes.append(float(np.sum(scat.to_table(['segment_flux'])[
+                'segment_flux'].value)))
+        return scat, bkg
+    module.sgp, module.sgp_beta_div = (solve(saved['sgp']),
+                                       solve(saved['sgp_beta_div']))
+    module.source_info = info
+    try:
+        return module.run(**kw), solves, fluxes
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def phase_subdivisions(torch, card: str) -> None:
+    """Phase 25: ``subdivisions.run()`` at its defaults (the crowded
+    410x410 frame, 400 stars, ``maxit=500``, warm), KL and beta (the
+    five-candidate search), on the card: wall, host catalog and card
+    seconds, detections. Then ``maxit=20`` in float64 on the card and on
+    the CPU: every solve's iterations equal and x within 1e-7. Several
+    candidates' catalog fluxes are equal to rounding (the projection
+    conserves flux), so the card's pick is held to score within 1e-9 of
+    the CPU's best."""
+    import os
+    import tempfile
+
+    from tpu_sgp_torch.workloads import subdivisions as sd
+    for use_beta in (False, True):
+        name = 'beta' if use_beta else 'kl'
+        patches = catalog_patches(sd) + [(sd, 'sgp', 'card'),
+                                         (sd, 'sgp_beta_div', 'card')]
+        with tempfile.TemporaryDirectory() as out:
+            with SplitTimer(torch, patches) as split:
+                t0 = time.perf_counter()
+                res = sd.run(use_beta_div=use_beta, out_dir=out)
+                wall = time.perf_counter() - t0
+            files = sorted(os.listdir(out))
+        x = res['restored']
+        print(f'subdivisions {name} 410x410 crowded float32: wall '
+              f'{wall:.4f} s; {split.line(wall)}; {res["iters"]} '
+              f'iterations in {res["wall"]:.4f} s (the timed solve); '
+              f'detections {res["n_orig_detections"]} -> '
+              f'{res["n_restored_detections"]}, beta {res["best_beta"]}; '
+              f'{len(files)} files [{card}]')
+        check(bool(np.isfinite(x).all()) and res['n_restored_detections'] > 0,
+              f'subdivisions {name}: finite, detections')
+        check(len(files) == (7 if use_beta else 6),
+              f'subdivisions {name}: the files written')
+        kw = dict(use_beta_div=use_beta, dtype='float64', maxit=20,
+                  save=False, warm=False)
+        (gpu, g_solves, g_flux), (cpu, c_solves, c_flux) = (
+            recorded_subdivisions(sd, device=dev, **kw)
+            for dev in ('cuda', 'cpu'))
+        # every card solve against the CPU's solve at the same beta (the
+        # final solve is the pick's, which ties may make another beta)
+        on_cpu = {b: (x, it) for b, x, it in c_solves}
+        rel = max(float(np.abs(x - on_cpu[b][0]).max()
+                        / np.abs(on_cpu[b][0]).max()) for b, x, _ in g_solves)
+        same = all(it == on_cpu[b][1] for b, _, it in g_solves) and [
+            b for b, _, _ in g_solves[:-1]] == [b for b, _, _ in c_solves[:-1]]
+        ffd = 1.0 - np.array(c_flux[:-1]) / float(np.sum(cpu['orig_fluxes']))
+        regret = (ffd[[c[0] for c in c_solves[:-1]].index(gpu['best_beta'])]
+                  - ffd.min()) if use_beta else 0.0
+        print(f'subdivisions {name} card vs cpu float64 maxit=20: '
+              f'{len(g_solves)} solves, iterations equal {same}, x '
+              f'{rel:.3e} (limit 1e-7); picks {gpu["best_beta"]} / '
+              f'{cpu["best_beta"]}, the card\'s scores {regret:.3e} above '
+              f'the best (limit 1e-9)')
+        check(len(g_solves) == len(c_solves) == (6 if use_beta else 1)
+              and same and rel <= 1e-7 and regret <= 1e-9,
+              f'subdivisions {name}: card equals CPU in float64')
+
+
+def seeded_psf_model(origin: float):
+    """A two-Gaussian DIAPL model (local degree 2, spatial degree 1) with
+    seeded coefficients, whose second component's weight and asymmetry
+    drift across the frame, centred on ``origin``."""
+    from tpu_sgp_torch.psf import DiaplPSFModel
+    rng = np.random.default_rng(0)
+    base = np.zeros(12)            # per Gaussian: 1, y, y^2, x, xy, x^2
+    base[[0, 6]] = 1.0, 0.3
+    base[[1, 3, 7, 9]] = rng.normal(0.0, 2e-3, 4)
+    base[[2, 4, 5, 8, 10, 11]] = np.abs(rng.normal(0.0, 1e-4, 6))
+    grad_y, grad_x = np.zeros(12), np.zeros(12)
+    grad_y[[1, 6]] = 2e-6, -5e-5
+    grad_x[[3, 6]] = -3e-6, 1e-4
+    return DiaplPSFModel(
+        hw=15, ndeg_spat=1, ndeg_local=2, ngauss=2, recenter=1.0,
+        cos=float(np.cos(0.3)), sin=float(np.sin(0.3)), ax=-0.32, ay=-0.26,
+        sigma_inc=0.7, sigma_mscale=1.0, fitrad=15.0, x_orig=origin,
+        y_orig=origin, vec_coeffs=np.concatenate([base, grad_y, grad_x]))
+
+
+def phase_spatial_psf(torch, card: str) -> None:
+    """Phase 26: ``restore_with_spatial_psf`` on a 2048x2048 star field,
+    100x100 tiles with overlap 10, a local PSF a tile from a seeded DIAPL
+    model, all tiles one batch on the card (its default configuration):
+    the tile count, which renderer ran and its seconds, the host
+    catalog's and the card's seconds, the peak device memory. Then a
+    256x256 cut in float64, ``max_iter=25``, on the card and on the CPU:
+    equal iterations, mosaic within 1e-7."""
+    from tpu_sgp_torch import SGPConfig
+    from tpu_sgp_torch.psf import native
+    from tpu_sgp_torch.simulate import synthetic_star_field
+    from tpu_sgp_torch.workloads import spatial_psf as sp
+    check(native.available(), 'the C++ PSF renderer builds (g++)')
+    image, _, _ = synthetic_star_field(2048, 2048, n_stars=2500, seed=26,
+                                       flux_range=(3e4, 9e4))
+    model = seeded_psf_model(1024.0)
+    patches = catalog_patches(sp) + [(sp, 'render_tile_psfs', 'render'),
+                                     (sp, 'restore_stamps', 'card')]
+    torch.cuda.reset_peak_memory_stats()
+    with SplitTimer(torch, patches) as split:
+        t0 = time.perf_counter()
+        mosaic, info = sp.restore_with_spatial_psf(image, model)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cover = info['footprint'] > 0
+    n = len(info['origins'])
+    print(f'spatial_psf 2048x2048 {n} tiles of 100x100 (overlap 10), a '
+          f'local PSF each, float32: wall {wall:.4f} s; {split.line(wall)}; '
+          f'renderer {"C++" if native.available() else "NumPy"}; '
+          f'{iters_line(info["iters"])}; peak device memory {peak:.3f} GiB; '
+          f'PSFs differ across the field by '
+          f'{np.abs(info["psfs"][0] - info["psfs"][-1]).max():.3e} [{card}]')
+    check(n >= 400 and bool(cover.all()) and
+          bool(np.isfinite(mosaic).all()), 'every tile, a finite mosaic')
+    cut = image[:256, :256]
+    cfg = SGPConfig(max_iter=25, stop_criterion=3, tol_convergence=1e-4,
+                    init_recon=2, proj_type=1, has_flux=True,
+                    has_sat_level=True, dtype='float64', operator='linear')
+    (gm, gi), (cm, ci) = (sp.restore_with_spatial_psf(cut, model, cfg,
+                                                      device=dev)
+                          for dev in ('cuda', 'cpu'))
+    rel = float(np.abs(gm - cm).max() / np.abs(cm).max())
+    print(f'spatial_psf card vs cpu float64 256x256 max_iter=25: '
+          f'{len(gi["origins"])} tiles, iterations equal '
+          f'{np.array_equal(gi["iters"], ci["iters"])}, mosaic {rel:.3e} '
+          f'(limit 1e-7)')
+    check(np.array_equal(gi['iters'], ci['iters']) and rel <= 1e-7,
+          'spatial_psf: card equals CPU in float64')
+
+
+def write_sgp_dec_fixtures(path: str, n: int = 255, seed: int = 27) -> None:
+    """Seeded ``.mat`` fixtures in the SGP-dec layout (gn, psf, bg, obj),
+    n x n, a PSF of the image's own shape: an extended nebula of Gaussian
+    blobs with point sources for NGC7027, a compact bright object on a
+    dark sky for the satellite."""
+    from scipy.io import savemat
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:n, :n] - n // 2
+    psf = np.exp(-(xx ** 2 + yy ** 2) / (2 * 2.0 ** 2))
+    psf /= psf.sum()
+    blob = lambda y, x, s, a: a * np.exp(-((yy - y) ** 2 + (xx - x) ** 2)
+                                         / (2 * s ** 2))
+    nebula = sum(blob(*rng.uniform(-40, 40, 2), rng.uniform(5, 20),
+                      rng.uniform(50, 300)) for _ in range(12))
+    for _ in range(20):
+        nebula[tuple(rng.integers(20, n - 20, 2))] += rng.uniform(1e3, 5e3)
+    satellite = np.zeros((n, n))
+    satellite[n // 2 - 6:n // 2 + 6, n // 2 - 20:n // 2 + 20] = 4e3
+    satellite[n // 2 - 15:n // 2 + 15, n // 2 - 3:n // 2 + 3] = 6e3
+    otf = np.fft.fft2(np.fft.ifftshift(psf))
+    for name, obj, bg in (('NGC7027_255.mat', nebula, 10.0),
+                          ('satellite_25500.mat', satellite, 2.0)):
+        gn = np.real(np.fft.ifft2(np.fft.fft2(obj) * otf)) + bg
+        gn = rng.poisson(np.maximum(gn, 0.0)).astype(np.float64)
+        savemat(os.path.join(path, name), {'gn': gn, 'psf': psf,
+                                           'bg': np.array([[bg]]),
+                                           'obj': obj})
+
+
+def phase_simulation(torch, card: str) -> None:
+    """Phase 27: ``simulation.run_all`` (NGC7027 27 iterations, satellite
+    332, KL and beta with the frozen beta inits, float32) on seeded 255x255
+    fixtures in the SGP-dec layout, on the card and on the CPU: each
+    rel_err finite and below 1; the 27-iteration runs within 1e-3 of the
+    CPU's (past about 60 iterations two runs that round differently part,
+    so the satellite's are printed beside each other); ``run_kl`` on the
+    NGC fixture in float64 within 1e-7."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_sgp_torch.workloads import simulation as sim
+    with tempfile.TemporaryDirectory() as data:
+        write_sgp_dec_fixtures(data)
+        walls, out = {}, {}
+        for dev in ('cuda', 'cpu'):
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                out[dev] = sim.run_all(data, device=dev)
+                walls[dev] = time.perf_counter() - t0
+        f64 = [sim.run_kl('NGC7027_255.mat', data_dir=data, dtype='float64',
+                          device=dev)[1] for dev in ('cuda', 'cpu')]
+    rel = {k: abs(out['cuda'][k] - v) / v for k, v in out['cpu'].items()}
+    print('simulation run_all 255x255 float32, rel_err card / cpu: '
+          + ', '.join(f'{k} {out["cuda"][k]:.6f} / {v:.6f}'
+                      for k, v in out['cpu'].items())
+          + f'; wall card {walls["cuda"]:.4f} s, cpu {walls["cpu"]:.4f} s; '
+          f'run_kl NGC float64 card vs cpu {abs(f64[0] - f64[1]) / f64[1]:.3e}'
+          f' (limits 1e-3 at 27 iterations, 1e-7 in float64) [{card}]')
+    check(all(np.isfinite(v) and 0.0 < v < 1.0 for d in out.values()
+              for v in d.values()), 'finite rel_err below 1')
+    check(rel['ngc_kl'] <= 1e-3 and rel['ngc_beta'] <= 1e-3,
+          'NGC: card within 1e-3 of the CPU')
+    check(abs(f64[0] - f64[1]) <= 1e-7 * f64[1], 'float64: card equals CPU')
+
+
+def write_cli_inputs(path: str):
+    """A 410x410 science frame with a TAN WCS header and its PSF, as FITS
+    files: the CLI's own inputs."""
+    from tpu_sgp_torch.image import Header, write_fits
+    from tpu_sgp_torch.simulate import synthetic_star_field
+    image, psf, _ = synthetic_star_field(410, 410, n_stars=120, seed=28)
+    hdr = Header({'GAIN': 1.22, 'SATURATE': 65000.0, 'CRPIX1': 205.0,
+                  'CRPIX2': 205.0, 'CRVAL1': 250.42, 'CRVAL2': 36.46,
+                  'CD1_1': -1.1e-4, 'CD1_2': 1e-6, 'CD2_1': 1e-6,
+                  'CD2_2': 1.1e-4, 'CTYPE1': 'RA---TAN',
+                  'CTYPE2': 'DEC--TAN'})
+    sci, psf_path = os.path.join(path, 'sci.fits'), os.path.join(path,
+                                                                 'psf.fits')
+    write_fits(sci, image, hdr)
+    write_fits(psf_path, psf)
+    return sci, psf_path
+
+
+def phase_cli(torch, card: str) -> None:
+    """Phase 28: the ``sgp`` command line (``tpu_sgp_torch.cli.main``) on
+    a 410x410 FITS pair with a TAN WCS header, whole-image and
+    ``--use_subdiv`` (100/10), on the card: the files it writes, finite
+    world coordinates, catalogs that are not empty; its wall split into
+    the host catalog's and the card's seconds."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_sgp_torch import cli
+    from tpu_sgp_torch.parallel import batch
+    with tempfile.TemporaryDirectory() as tmp:
+        sci, psf = write_cli_inputs(tmp)
+        for mode, extra in (('whole', []), ('subdiv', [
+                '--use_subdiv', '--subdivision_size', '100',
+                '--subdiv_overlap', '10'])):
+            out_dir = os.path.join(tmp, mode)
+            patches = catalog_patches(cli) + [
+                (cli, 'sgp', 'card'), (cli, 'sgp_beta_div', 'card'),
+                (cli, 'restore_stamps', 'card'),
+                (batch, 'restore_stamps', 'card')]
+            with SplitTimer(torch, patches) as split, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                res = cli.main(['--data_path_sciimg', sci, '--data_path_psf',
+                                psf, '--output_dir', out_dir, *extra])
+                wall = time.perf_counter() - t0
+            files = sorted(os.listdir(out_dir))
+            orig, deconv = res['orig_catalog'], res['deconv_catalog']
+            world = deconv[['X_WORLD', 'Y_WORLD']].to_numpy(np.float64)
+            print(f'cli {mode} 410x410 float32: wall {wall:.4f} s; '
+                  f'{split.line(wall)}; {res["iters"]} iterations (the '
+                  f'slowest tile); objects {len(orig)} -> {len(deconv)}; '
+                  f'{len(files)} files [{card}]')
+            prefix = 'subdiv_' if mode == 'subdiv' else ''
+            check(f'{prefix}deconvolved_sci.fits' in files and
+                  'deconv_sci.fits_scat.csv' in files and len(files) == 7,
+                  f'cli {mode}: the files written')
+            check(len(orig) > 0 and len(deconv) > 0 and
+                  bool(np.isfinite(world).all()) and
+                  bool(np.isfinite(res['deconvolved']).all()),
+                  f'cli {mode}: catalogs with world coordinates')
+
+
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print('FAIL: torch.cuda.is_available() is False; this run needs an '
@@ -1677,7 +2144,12 @@ def main() -> int:
                               (20, lambda: phase_server(torch, card)),
                               (21, lambda: phase_big_request(torch, card)),
                               (22, lambda: phase_catalog(torch, card)),
-                              (23, lambda: phase_save(torch))):
+                              (23, lambda: phase_save(torch)),
+                              (24, lambda: phase_star_stamps(torch, card)),
+                              (25, lambda: phase_subdivisions(torch, card)),
+                              (26, lambda: phase_spatial_psf(torch, card)),
+                              (27, lambda: phase_simulation(torch, card)),
+                              (28, lambda: phase_cli(torch, card))):
             if number >= first:
                 phase()
         print(f'partial run from phase {first}: no result')
@@ -1713,6 +2185,17 @@ def main() -> int:
     phase_big_request(torch, card, kl_ref)
     phase_catalog(torch, card)
     phase_save(torch)
+
+    # 24-28
+    apps = time.perf_counter()
+    phase_star_stamps(torch, card)
+    phase_subdivisions(torch, card)
+    phase_spatial_psf(torch, card)
+    phase_simulation(torch, card)
+    phase_cli(torch, card)
+    done = time.perf_counter()
+    print(f'wall: phases 1-23 {apps - started:.1f} s, the applications '
+          f'(24-28) {done - apps:.1f} s, all {done - started:.1f} s')
 
     k1 = {'route': 'cuda', 'source': 'tpu_sgp_torch/csrc/flux_projection.cu',
           'replaces': 'tpu_sgp/experimental/pallas_projection.py:40'}

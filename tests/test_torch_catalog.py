@@ -65,7 +65,9 @@ def test_native_library_builds_under_the_build_directory():
 def test_catalog_package_exports_what_is_ported():
     assert sorted(tcat.__all__) == sorted(
         ['Background2D', 'SegmentationImage', 'SourceFinder',
-         'detect_sources', 'deblend_sources', 'brightest_catalog_fluxes'])
+         'detect_sources', 'deblend_sources', 'brightest_catalog_fluxes',
+         'Column', 'SourceCatalog', 'Table', 'source_info',
+         'source_info_batch'])
 
 
 def test_utils_sigma_clipped_stats_and_kernel():

@@ -22,7 +22,11 @@ def test_fitsio_source_equals_the_jax_package():
 def test_image_package_exports_what_is_ported():
     assert sorted(timage.__all__) == sorted(
         ['read_fits', 'write_fits', 'writeto', 'getdata', 'getheader',
-         'Header', 'set_header_card'])
+         'Header', 'set_header_card', 'WCS', 'pixel_to_skycoord',
+         'Cutout2D', 'calculate_slice_bboxes', 'create_subdivisions',
+         'tile_origins', 'coadd_tiles', 'match_backgrounds',
+         'reconstruct_full_image_from_patches', 'reproject_and_coadd',
+         'reproject_to_grid'])
     from tpu_sgp import image as jimage
     assert set(timage.__all__) <= set(jimage.__all__)
 

@@ -68,8 +68,10 @@ def _run(gn, psf, bkg, cfg: SGPConfig, flux, obj, beta0, lr0, sat_level,
          device=None):
     """``_run`` (``api.py:77-116``) around the batched solver: every image
     argument gains a leading batch axis of 1 and every result loses it."""
-    gn = np.asarray(gn)
-    psf = np.asarray(psf)
+    # contiguous copies of views with negative strides (np.fliplr), which
+    # torch.as_tensor refuses
+    gn = np.ascontiguousarray(gn)
+    psf = np.ascontiguousarray(psf)
     check_psf_normalized(psf)
     _validate_inputs(gn, bkg, flux, cfg.proj_type)
     if cfg.save:

@@ -72,6 +72,9 @@ def _batched_solve_two_phase(stamps, psf, bkgs, x0, fluxes, obj, beta0, lr0,
 
 
 def _as_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    if isinstance(a, np.ndarray):
+        # torch.as_tensor refuses negative strides (np.fliplr views)
+        a = np.ascontiguousarray(a)
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
