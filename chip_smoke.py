@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--from N]
 
-With ``--from N`` (13 to 28) phases 3 to N - 1 are skipped and no result is
+With ``--from N`` (13 to 30) phases 3 to N - 1 are skipped and no result is
 printed: a short run for work on the later phases.
 
 Phases, one line of output each (or a few):
@@ -100,7 +100,21 @@ Phases, one line of output each (or a few):
  27. the simulation application, ``workloads.simulation.run_all`` on
      seeded 255x255 fixtures in the SGP-dec layout, card against CPU;
  28. the ``sgp`` command line, ``cli.main`` on a 410x410 FITS pair with a
-     TAN WCS header, whole-image and ``--use_subdiv``.
+     TAN WCS header, whole-image and ``--use_subdiv``;
+ 29. the reference's raw-frame chain on seeded data at survey size:
+     ``preprocess.cull_frames`` on five 2048x2048 uint16 bias frames and
+     three flats (and ``python -m tpu_sgp_torch.preprocess`` on a copy);
+     a 2048x2048 uint16 star field with saturated stars written as fpack
+     RICE_1 and read back bit for bit (the C++ and pure-Python codecs
+     equal on a 256-row slice); ``psf.pipeline.psf_estimation`` over the
+     reference's 2x5 sub-frame grid; the 410x410 centre cut restored on the
+     card with its sub-frame's PSF under ``observability.timed``, and
+     through ``solve`` with 'pallas' under ``observability.profiled`` (the
+     trace names the projection kernel's grid path); the restoration
+     written as GZIP_2 and as quantised RICE_1;
+ 30. ``observability.nan_guard`` on CUDA tensors: log(-1) raises under it,
+     a disabled guard changes no bit of phase 29's solve, the solve raises
+     under an enabled guard, the guard is off afterwards.
 
 Then a JSON line of the kernels, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -2112,6 +2126,393 @@ def phase_cli(torch, card: str) -> None:
                   f'cli {mode}: catalogs with world coordinates')
 
 
+# phases 29-30: the reference's raw-frame chain on seeded data at survey
+# size (a 2048x2048 uint16 frame), then the NaN guard on the card
+RAW_SIZE, RAW_STARS, RAW_SEED = 2048, 2000, 29
+RAW_SATURATED = 5                 # stars bright enough to clip at 65535
+CALIBRATION_SEED = 30
+CUT = 410                         # the whole-frame workload's size
+PSF_GRID = (2, 5)                 # nx, ny: the reference's sub-frame grid
+# the PSF fit's settings: at most 6 stars a sub-frame (``max_stars``,
+# default 100) and one flux-scale pass (``scale_iters``, default up to 3).
+# The fit recentres every star, so its cost grows with the square of their
+# number: 64 stars took minutes a sub-frame on a host CPU, 6 take 1-3 s,
+# and one scale pass halves that with models as close to the truth
+PSF_FIT = dict(max_stars=6, scale_iters=1)
+QUANTIZE = 1.0                    # RICE_1 quantisation step of the result
+
+
+def write_calibration_frames(directory: str, seed: int) -> None:
+    """Five 2048x2048 uint16 bias frames (EXPTIME 0, the last with twice the
+    others' noise) and three flats (IMAGETYP 'flat', the last with a mean
+    above 50000), none with a FILTER card."""
+    from tpu_sgp_torch.image import Header, write_fits
+    rng = np.random.default_rng(seed)
+    shape = (RAW_SIZE, RAW_SIZE)
+
+    def u16(a):
+        return np.clip(np.rint(a), 0, 65535).astype(np.uint16)
+    for i, noise in enumerate((5.0, 5.5, 4.5, 5.2, 10.0)):
+        write_fits(os.path.join(directory, f'bias_{i}.fits'),
+                   u16(rng.normal(1000.0, noise, shape)),
+                   Header({'EXPTIME': 0.0}))
+    for i, level in enumerate((30000.0, 32000.0, 58000.0)):
+        write_fits(os.path.join(directory, f'flat_{i}.fits'),
+                   u16(rng.normal(level, 150.0, shape)),
+                   Header({'EXPTIME': 2.0, 'IMAGETYP': 'flat'}))
+
+
+def raw_frame() -> tuple:
+    """The seeded raw frame: ``synthetic_star_field`` at 2048x2048 (2000
+    stars, 31x31 PSF, FWHM 2.8) with five stars of 3e6 counts added,
+    rounded and clipped to uint16. Returns (frame, the true PSF)."""
+    from tpu_sgp_torch.simulate import synthetic_star_field
+    img, psf, _ = synthetic_star_field(RAW_SIZE, RAW_SIZE, n_stars=RAW_STARS,
+                                       psf_size=31, fwhm=2.8, seed=RAW_SEED)
+    rng = np.random.default_rng(RAW_SEED)
+    for y, x in rng.integers(64, RAW_SIZE - 64, (RAW_SATURATED, 2)):
+        img[y - 15:y + 16, x - 15:x + 16] += 3e6 * psf
+    return np.clip(np.rint(img), 0, 65535).astype(np.uint16), psf
+
+
+def centre_cut(frame: np.ndarray) -> tuple:
+    """The CUT x CUT cut at the frame's centre, as float64, and the key
+    (ix, iy) of the PSF grid's sub-frame that holds its centre."""
+    c0 = (RAW_SIZE - CUT) // 2
+    cut = frame[c0:c0 + CUT, c0:c0 + CUT].astype(np.float64)
+    nx, ny = PSF_GRID
+    centre = RAW_SIZE // 2
+    key = (min(centre // (RAW_SIZE // nx), nx - 1) + 1,
+           min(centre // (RAW_SIZE // ny), ny - 1) + 1)
+    return cut, key
+
+
+def solver_psf(mat: np.ndarray) -> np.ndarray:
+    """A fitted PSF matrix as the solver takes it: its negative wing pixels
+    (a DIAPL model fitted to a few stars dips below 0) set to 0, then
+    normalised to sum 1. Fed as is, a PSF with negative pixels stops the
+    KL iteration after one step with a NaN discrepancy, in the JAX package
+    too."""
+    psf = np.maximum(mat, 0.0)
+    return psf / psf.sum()
+
+
+def restore_cut(cut, psf, sky):
+    """The façade on the cut with the whole-frame workload's settings."""
+    import tpu_sgp_torch as tsgp
+    return tsgp.sgp(cut, psf, sky, init_recon=2, proj_type=1,
+                    stop_criterion=3, MAXIT=500, tol_convergence=1e-5)
+
+
+def trace_kernels(logdir: str) -> tuple:
+    """The Chrome trace that ``profiled`` wrote into ``logdir``: (total
+    microseconds by CUDA kernel name, device microseconds of every kernel,
+    copy and set)."""
+    names = [n for n in os.listdir(logdir) if n.endswith('.pt.trace.json')]
+    check(len(names) == 1, f'one trace file in {logdir} ({names})')
+    with open(os.path.join(logdir, names[0])) as f:
+        events = json.load(f)['traceEvents']
+    kernels: dict = {}
+    device_us = 0.0
+    for e in events:
+        if e.get('ph') != 'X':
+            continue
+        if e.get('cat') == 'kernel':
+            kernels[e['name']] = kernels.get(e['name'], 0.0) + e['dur']
+        if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+            device_us += e['dur']
+    return kernels, device_us
+
+
+class Beside:
+    """One command run in the background beside a block of work, from the
+    checkout's root: ``start`` it, read ``result`` later; leaving the
+    block kills it if it still runs."""
+
+    def __init__(self):
+        self.proc = None
+        self.done: list = []
+
+    def start(self, cmd: list) -> None:
+        import threading
+        started = time.perf_counter()
+        self.proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.waiter = threading.Thread(target=lambda: self.done.append(
+            (self.proc.communicate(), time.perf_counter() - started)))
+        self.waiter.start()
+
+    def result(self, timeout: float) -> tuple:
+        """(exit code, stdout, stderr, seconds from start to exit)."""
+        self.waiter.join(timeout)
+        check(bool(self.done), f'{self.proc.args} ended in {timeout} s')
+        (stdout, stderr), seconds = self.done[0]
+        return self.proc.returncode, stdout, stderr, seconds
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is not None:
+            if self.proc.poll() is None:
+                self.proc.kill()
+            self.waiter.join()
+
+
+def phase_raw_frame(torch, card: str) -> dict:
+    """Phase 29: the reference's raw-frame chain, seeded, at survey size.
+    (a) ``preprocess.cull_frames`` on five bias frames and three flats,
+    and ``python -m tpu_sgp_torch.preprocess`` on a fresh copy; (b) the raw
+    frame written as fpack RICE_1 and read back bit for bit, the native and
+    pure-Python codecs equal on a 256-row slice; (c) ``psf_estimation``
+    over the 2x5 grid: every written PSF 31x31, finite, of sum 1, every
+    ``.coo`` readable; (d) the centre cut restored on the card with the
+    PSF of its sub-frame under ``observability.timed``; (e) the same cut
+    through ``solve`` with 'pallas' under ``observability.profiled``: the
+    trace names the projection kernel's grid path; (f) the restoration
+    written compressed, GZIP_2 bit for bit and RICE_1 within half a
+    quantisation step. Returns what phase 30 needs."""
+    import shutil
+    import tempfile
+
+    import tpu_sgp_torch as tsgp
+    from tpu_sgp_torch import observability, preprocess
+    from tpu_sgp_torch.image import (getheader, read_fits,
+                                     write_fits_compressed)
+    from tpu_sgp_torch.image import tile_compression as tc
+    from tpu_sgp_torch.kernels.flux_projection import project_rows
+    from tpu_sgp_torch.psf import pipeline, read_coo
+    from tpu_sgp_torch.solvers.sgp import solve
+    from tpu_sgp_torch.utils import sigma_clipped_stats
+    with tempfile.TemporaryDirectory() as tmp, Beside() as cli:
+        # (a) calibration frames
+        frames, fresh = os.path.join(tmp, 'cal'), os.path.join(tmp, 'cal2')
+        os.makedirs(frames)
+        t0 = time.perf_counter()
+        write_calibration_frames(frames, CALIBRATION_SEED)
+        shutil.copytree(frames, fresh)
+        made = time.perf_counter() - t0
+        cli.start([sys.executable, '-m', 'tpu_sgp_torch.preprocess', fresh,
+                   '--default-filter', 'R'])
+        t0 = time.perf_counter()
+        rep = preprocess.cull_frames(frames, default_filter='R')
+        cull_s = time.perf_counter() - t0
+        moved = sorted(os.listdir(os.path.join(frames, 'BadFrames')))
+        kept = sorted(n for n in os.listdir(frames) if n.endswith('.fits'))
+        check(moved == ['bias_4.fits', 'flat_2.fits'] and
+              [os.path.basename(p) for p in rep.bad_biases + rep.bad_flats]
+              == moved and len(rep.biases) == 5 and len(rep.flats) == 3,
+              f'cull: the noisy bias and the bright flat rejected ({moved})')
+        check(all(('FILTER' in getheader(os.path.join(frames, n))) ==
+                  n.startswith('flat') for n in kept) and
+              len(rep.filter_fixed) == 3, 'cull: FILTER written into the '
+              'flats')
+        print(f'raw chain cull 5 bias + 3 flat {RAW_SIZE}x{RAW_SIZE} uint16: '
+              f'cull_frames {cull_s:.4f} s, rejected {moved}, FILTER fixed '
+              f'on {len(rep.filter_fixed)}; frames made in {made:.4f} s')
+
+        # (b) the compressed raw frame
+        t0 = time.perf_counter()
+        frame, true_psf = raw_frame()
+        made = time.perf_counter() - t0
+        raw = os.path.join(tmp, 'raw.fits.fz')
+        t0 = time.perf_counter()
+        write_fits_compressed(raw, frame, compression='RICE_1')
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, hdr = read_fits(raw)
+        read_s = time.perf_counter() - t0
+        ratio = frame.nbytes / os.path.getsize(raw)
+        check(back.dtype == np.uint16 and np.array_equal(back, frame),
+              'RICE_1 raw frame read back bit for bit')
+        native = tc.rice_native_available()
+        check(native, 'the C++ Rice codec builds with g++')
+        rows = (frame[:256].astype(np.int32) - 32768).astype(np.int16).ravel()
+        t0 = time.perf_counter()
+        enc = tc.rice_encode(rows)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        enc_py = tc._rice_encode_py(rows, 32)
+        py_s = time.perf_counter() - t0
+        check(enc == enc_py and np.array_equal(
+            tc.rice_decode(enc, rows.size, 2).view(np.int16), rows),
+            'native and pure-Python Rice codecs: equal bytes')
+        saturated = int((frame == 65535).sum())
+        print(f'raw chain RICE_1 {RAW_SIZE}x{RAW_SIZE} uint16 ({saturated} '
+              f'saturated pixels): native codec {native}; ratio {ratio:.4f}; '
+              f'write {write_s:.4f} s, read {read_s:.4f} s, bit-equal; 256-row '
+              f'slice native {native_s:.4f} s, pure Python {py_s:.4f} s, equal '
+              f'bytes; frame made in {made:.4f} s')
+
+        # (c) PSF estimation over the reference's 2x5 grid
+        psf_dir = os.path.join(tmp, 'psf')
+        nx, ny = PSF_GRID
+        t0 = time.perf_counter()
+        models = pipeline.psf_estimation(back.astype(np.float64), nx=nx,
+                                         ny=ny, out_dir=psf_dir, name='raw',
+                                         **PSF_FIT)
+        psf_s = time.perf_counter() - t0
+        files = sorted(os.listdir(psf_dir))
+        mats = {}
+        for key in models:
+            stem = f'raw_{key[0]}_{key[1]}'
+            mat, _ = read_fits(os.path.join(psf_dir, f'psf{stem}_img.fits'))
+            check(mat.shape == (31, 31) and bool(np.isfinite(mat).all()) and
+                  abs(float(mat.sum()) - 1.0) <= 1e-6,
+                  f'psf{stem}_img.fits: 31x31, finite, sum 1')
+            check(len(read_coo(os.path.join(psf_dir, f'{stem}.coo'))) > 0,
+                  f'{stem}.coo reads back')
+            mats[key] = mat
+        check(len(files) == 3 * len(models) and len(models) >= 1,
+              f'psf_estimation wrote its files ({len(files)})')
+        dist = [float(np.linalg.norm(m - true_psf) / np.linalg.norm(true_psf))
+                for m in mats.values()]
+        negative = [int((m < 0).sum()) for m in mats.values()]
+        print(f'raw chain psf_estimation {nx}x{ny} grid, {PSF_FIT}: '
+              f'{len(models)} of {nx * ny} sub-frames with a model, host '
+              f'{psf_s:.4f} s; PSF vs the true Gaussian relative L2 median '
+              f'{np.median(dist):.4f} max {max(dist):.4f}; negative pixels '
+              f'a model {negative}')
+
+        # the command line, run beside (a)-(c) on the fresh copy
+        returncode, stdout, stderr, cli_s = cli.result(timeout=300)
+        counts = [line for line in stdout.splitlines()
+                  if not line.startswith('  moved')]
+        check(returncode == 0 and counts == [
+            'biases: 5 (rejected 1)', 'flats: 3 (rejected 1)',
+            'FILTER fixed on 3 frames'], f'python -m '
+            f'tpu_sgp_torch.preprocess: {stdout!r} {stderr[-300:]!r}')
+        print(f'raw chain python -m tpu_sgp_torch.preprocess on a copy of the '
+              f'frames: the same counts, {cli_s:.4f} s (a fresh interpreter, '
+              f'run beside the cull, the compressed frame and psf_estimation)')
+
+        # (d) restore the centre cut on the card
+        cut, key = centre_cut(back)
+        check(key in mats, f'a PSF model for the centre sub-frame {key}')
+        psf = solver_psf(mats[key])
+        sky = sigma_clipped_stats(cut)[1]
+        (x, iters, _, _, _), best = observability.timed(
+            restore_cut, cut, psf, sky, repeats=3)
+        flux = float((cut - sky).sum())
+        err = abs(float(x.astype(np.float64).sum()) - flux) / flux
+        check(bool(np.isfinite(x).all()) and x.shape == cut.shape and
+              iters > 1 and err <= FLUX_RTOL['float32'], f'restored cut '
+              f'finite, {iters} iterations, flux kept ({err:.3e})')
+        print(f'raw chain sgp {CUT}x{CUT} centre cut, PSF of sub-frame {key} '
+              f'({int((mats[key] < 0).sum())} negative pixels set to 0), sky '
+              f'{sky:.4f}, float32 (linear, cold bisect, stop 3 at 1e-5): '
+              f'iters={iters} best wall of 3 {best:.4f} s (timed) flux rel '
+              f'err={err:.3e} [{card}]')
+
+        # (e) profile the 'pallas' solve
+        cfg = tsgp.SGPConfig(**FRAME_CONVERGED, projection_method='pallas')
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device='cuda')
+        gn, psf_d = t(cut[None]), t(psf)
+        bkg, z = torch.full_like(gn, sky), torch.zeros_like(gn)
+        run_solve = lambda: solve(gn, psf_d, bkg, z, 0.0, z, 1.0, 1e-3, 0.0,
+                                  cfg)
+        run_solve()                                           # warm-up
+        torch.cuda.synchronize()
+        logdir = os.path.join(tmp, 'trace')
+        launches = project_rows.grid_launches
+        with observability.profiled(logdir):
+            t0 = time.perf_counter()
+            res = run_solve()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = project_rows.grid_launches - launches
+        kernels, device_us = trace_kernels(logdir)
+        grid = [n for n in kernels if 'project_rows_grid_kernel' in n]
+        it = int(res.iters[0])
+        check(bool(grid) and launches == it + 1, f'the trace names the '
+              f'projection kernel\'s grid path ({grid}), {launches} '
+              f'launches for {it} iterations')
+        check(bool(torch.isfinite(res.x).all()), "'pallas' cut finite")
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+        print(f'raw chain profile {CUT}x{CUT} float32 pallas: {it} iterations'
+              f', wall {wall:.4f} s (profiled), card busy '
+              f'{device_us / 1e3:.3f} ms ({100 * device_us / 1e6 / wall:.1f} '
+              f'% of the wall); grid-path launches {launches}; top kernels: '
+              + '; '.join(f'{n[:60]} {us / 1e3:.3f} ms' for n, us in top)
+              + f' [{card}]')
+
+        # (f) write the restoration compressed
+        out_gz = os.path.join(tmp, 'restored_gzip.fits')
+        out_rice = os.path.join(tmp, 'restored_rice.fits')
+        write_fits_compressed(out_gz, x, compression='GZIP_2')
+        gz, _ = read_fits(out_gz)
+        check(gz.dtype == x.dtype and np.array_equal(gz, x),
+              'GZIP_2 restoration read back bit for bit')
+        write_fits_compressed(out_rice, x, compression='RICE_1',
+                              quantize_scale=QUANTIZE)
+        rice, _ = read_fits(out_rice)
+        # the read-back value is rounded to float32 once more
+        limit = QUANTIZE / 2 + float(np.spacing(np.abs(x).max()))
+        q_err = float(np.abs(rice.astype(np.float64) - x).max())
+        check(q_err <= limit, f'RICE_1 quantised within q/2 ({q_err})')
+        print(f'raw chain write restored {CUT}x{CUT} float32: GZIP_2 '
+              f'{os.path.getsize(out_gz)} bytes bit-equal; RICE_1 q='
+              f'{QUANTIZE} {os.path.getsize(out_rice)} bytes, max error '
+              f'{q_err:.6f} (limit {limit:.6f})')
+    return dict(cut=cut, psf=psf, sky=sky, x=x)
+
+
+def centre_inputs() -> dict:
+    """Phase 29's solve inputs when phase 30 runs alone: the raw frame's
+    centre cut and the PSF fitted to its sub-frame (``psf_estimation``
+    fits each sub-frame alone, so this is the same model)."""
+    from tpu_sgp_torch.psf import pipeline
+    from tpu_sgp_torch.utils import sigma_clipped_stats
+    frame, _ = raw_frame()
+    cut, key = centre_cut(frame)
+    nx, ny = PSF_GRID
+    sub = dict((k, c) for c, k in pipeline.cut_subframes(
+        frame, nx=nx, ny=ny))[key]
+    model, _ = pipeline.estimate_psf_model(np.asarray(sub.data, np.float64),
+                                           **PSF_FIT)
+    sky = sigma_clipped_stats(cut)[1]
+    psf = solver_psf(model.normalized_matrix(31))
+    return dict(cut=cut, psf=psf, sky=sky, x=restore_cut(cut, psf, sky)[0])
+
+
+def phase_nan_guard(torch, inputs: dict) -> None:
+    """Phase 30: ``observability.nan_guard`` on CUDA tensors. log(-1)
+    raises under the guard and not outside it; a disabled guard around
+    phase 29's solve changes no bit of x; phase 29's solve under the guard
+    raises (the port's solver makes Inf by design, and every operation is
+    checked); the guard is off afterwards."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    from tpu_sgp_torch import observability
+    minus_one = torch.tensor(-1.0, device='cuda')
+    try:
+        with observability.nan_guard():
+            torch.log(minus_one)
+        raised = False
+    except FloatingPointError:
+        raised = True
+    check(raised, 'log(-1) on the card raises under the guard')
+    check(bool(torch.isnan(torch.log(minus_one))), 'and not outside it')
+    with observability.nan_guard(enable=False):
+        x = restore_cut(inputs['cut'], inputs['psf'], inputs['sky'])[0]
+    check(np.array_equal(x, inputs['x']), 'a disabled guard changes no bit')
+    t0 = time.perf_counter()
+    try:
+        with observability.nan_guard():
+            restore_cut(inputs['cut'], inputs['psf'], inputs['sky'])
+        message = None
+    except FloatingPointError as exc:
+        message = str(exc)
+    raised_s = time.perf_counter() - t0
+    check(message is not None, 'the solve raises under the guard')
+    check(not _get_current_dispatch_mode_stack() and
+          bool(torch.isnan(torch.log(minus_one))), 'the guard is off again')
+    print(f'nan_guard on the card: log(-1) raises under it, NaN outside; '
+          f'disabled around the {CUT}x{CUT} solve: x bit-equal; enabled: '
+          f'raised after {raised_s:.4f} s ({message}); off afterwards')
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -2134,6 +2535,7 @@ def main() -> int:
     first = int(sys.argv[2]) if sys.argv[1:2] == ['--from'] else 2
     phase_build()
     if first > 2:
+        raw: dict = {}
         for number, phase in ((13, lambda: phase_long_rows(torch)),
                               (14, lambda: phase_operators(torch)),
                               (15, lambda: phase_frame(torch, card)),
@@ -2149,7 +2551,11 @@ def main() -> int:
                               (25, lambda: phase_subdivisions(torch, card)),
                               (26, lambda: phase_spatial_psf(torch, card)),
                               (27, lambda: phase_simulation(torch, card)),
-                              (28, lambda: phase_cli(torch, card))):
+                              (28, lambda: phase_cli(torch, card)),
+                              (29, lambda: raw.update(
+                                  phase_raw_frame(torch, card))),
+                              (30, lambda: phase_nan_guard(
+                                  torch, raw or centre_inputs()))):
             if number >= first:
                 phase()
         print(f'partial run from phase {first}: no result')
@@ -2193,9 +2599,14 @@ def main() -> int:
     phase_spatial_psf(torch, card)
     phase_simulation(torch, card)
     phase_cli(torch, card)
+
+    # 29-30
+    chain = time.perf_counter()
+    phase_nan_guard(torch, phase_raw_frame(torch, card))
     done = time.perf_counter()
     print(f'wall: phases 1-23 {apps - started:.1f} s, the applications '
-          f'(24-28) {done - apps:.1f} s, all {done - started:.1f} s')
+          f'(24-28) {chain - apps:.1f} s, the raw-frame chain and the NaN '
+          f'guard (29-30) {done - chain:.1f} s, all {done - started:.1f} s')
 
     k1 = {'route': 'cuda', 'source': 'tpu_sgp_torch/csrc/flux_projection.cu',
           'replaces': 'tpu_sgp/experimental/pallas_projection.py:40'}

@@ -2,7 +2,8 @@
 package: a copy equals its original once blank lines, import lines and the
 lines that name an original by ``file:line`` are dropped from both, the
 port's package name is read as the original's, and a path into the
-reference's checkout is read as the copy's "the reference's"."""
+reference's checkout is read as the copy's "the reference's" (or "The
+reference's" at the start of a sentence)."""
 import re
 from pathlib import Path
 
@@ -11,7 +12,7 @@ _ORIGIN = re.compile(r'\.(py|cpp):\d+')
 # an absolute path into the reference's checkout (the original's spelling)
 # or "the reference's " (the copy's): both read as nothing
 _REFERENCE = re.compile(r"(?<![\w./])/\w+/\w+/(?:restoration/)?|"
-                        r"the reference's ")
+                        r"[Tt]he reference's ")
 
 
 def normalised(path: str) -> list:

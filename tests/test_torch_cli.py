@@ -128,14 +128,16 @@ def test_python_dash_m_runs_the_cli(tmp_path):
 
 
 def test_port_console_scripts_resolve():
-    """``pyproject.toml`` names the port's CLI and four workloads beside
-    the JAX package's scripts, each the JAX one's counterpart."""
+    """``pyproject.toml`` names the port's CLI, frame culling and four
+    workloads beside the JAX package's scripts, each the JAX one's
+    counterpart."""
     import importlib
     import tomllib
     with open(os.path.join(REPO, 'pyproject.toml'), 'rb') as f:
         scripts = tomllib.load(f)['project']['scripts']
     port = {k: v for k, v in scripts.items() if v.startswith('tpu_sgp_torch')}
-    assert sorted(port) == ['tpu-sgp-torch', 'tpu-sgp-torch-simulate',
+    assert sorted(port) == ['tpu-sgp-torch', 'tpu-sgp-torch-cull',
+                            'tpu-sgp-torch-simulate',
                             'tpu-sgp-torch-spatial', 'tpu-sgp-torch-stamps',
                             'tpu-sgp-torch-subdiv']
     for name, target in port.items():

@@ -66,8 +66,7 @@ def test_packages_export_the_jax_names():
     from tpu_sgp import catalog, image, metrics, psf, workloads
     assert set(tcat.__all__) == set(catalog.__all__) | {
         'brightest_catalog_fluxes'}
-    assert set(timage.__all__) == set(image.__all__) - {
-        'write_fits_compressed'}
+    assert set(timage.__all__) == set(image.__all__)
     assert set(tpsf.__all__) == set(psf.__all__)
     assert tworkloads.__all__ == workloads.__all__
     for pkg, jpkg in ((tcat, catalog), (timage, image), (tpsf, psf),

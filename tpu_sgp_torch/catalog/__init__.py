@@ -1,7 +1,7 @@
 """Host catalog pipeline (NumPy/SciPy copies of ``tpu_sgp/catalog/``):
 background, detection and deblending, source properties, ``source_info``,
-and ``beta_init_search``'s batched scorer. ``catalog/plotting.py`` is not
-ported yet."""
+``beta_init_search``'s batched scorer, and ``plot_positions`` in
+``catalog.plotting`` (matplotlib, imported when it is called)."""
 from .background import Background2D
 from .batched import brightest_catalog_fluxes
 from .segmentation import (SegmentationImage, SourceFinder, deblend_sources,

@@ -15,7 +15,6 @@ are inflated natively (RICE_1 / GZIP_1 / GZIP_2 — see tile_compression.py);
 only dithered quantization and PLIO/HCOMPRESS raise.
 """
 # Host code (NumPy/SciPy), kept equal to tpu_sgp/image/fitsio.py:1
-# tile_compression is not ported yet (tpu_sgp/image/fitsio.py:229 imports it): a tile-compressed HDU raises ImportError here
 from __future__ import annotations
 
 import os

@@ -1,5 +1,6 @@
-"""DIAPL PSF models, the PSF fit and PSF kernels (NumPy/SciPy host code,
-copies of ``tpu_sgp/psf/``). ``psf/pipeline.py`` is not ported yet."""
+"""DIAPL PSF models, the PSF fit, PSF kernels and the PSF-estimation
+pipeline of ``psf.pipeline`` (NumPy/SciPy host code, copies of
+``tpu_sgp/psf/``)."""
 from .diapl import PSF, DiaplPSFModel, read_coo
 from .fit import FitStar, fit_psf_model
 from .kernels import normalize_psf, scale_psf
