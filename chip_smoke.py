@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--from N]
 
-With ``--from N`` (13 to 31) phases 3 to N - 1 are skipped and no result is
+With ``--from N`` (13 to 41) phases 3 to N - 1 are skipped and no result is
 printed: a short run for work on the later phases. ``--rank ...`` is the
 entry of one rank of phases 31-33 (``rank_main``), which the script starts
 itself.
@@ -141,6 +141,22 @@ Phases, one line of output each (or a few):
      (batch 2, ty 1, tx 2) against one device an image, float64;
      ``make_multiprocess_mesh``'s placement; phase 32's frame checkpointed
      on 2x2 and resumed on 4x1, against the uninterrupted solve.
+ 34-41. the example scripts (``examples_torch/``), each through its own
+     ``run`` at the JAX example's sizes. 34: ``deconvolve_demo`` (the
+     256x256 field, KL and beta, 128 stamps; finite, flux within 1e-4);
+     35: ``serving_demo`` (three warmed buckets, five requests, two
+     streams, eight clients of a ``MicroBatchServer``); 36:
+     ``build_allsky_map`` at 96x96 tiles; 37: ``time_halo_operator`` in
+     phase 31's NCCL rank, the halo operator's local apply on a 1x1 mesh
+     against the linear operator at 410x410 (within 1e-5 in float32); 38:
+     ``scan_compaction``, the KL and beta grids at B=12288, best of 2;
+     39: ``determinism_check``, six fresh processes, stable_sums True and
+     False under three perturbations (the stable arm must agree), after a
+     probe of what a batch of two changes; 40, beside 39's six runs:
+     ``serving_recycle_soak`` for about 75-90 s with a limit of 40 device
+     calls a process (zero loss, at least two recycles, the RSS curves);
+     41: ``distributed_demo`` in phase 31's two worlds. They launch
+     neither kernel.
 
 Then a JSON line of the kernels, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -1776,9 +1792,10 @@ def f64_workload(module):
 
 # phase 24, float64 card against CPU: the catalog metrics within 1e-7 on
 # 95 % of the lanes (a catalog is not continuous in x: a pixel at the
-# detection threshold moves a segment, 3.5e-4 of FFD on one of 64 lanes
-# for restorations 1.5e-11 apart), the radial-profile distance by its
-# median (a least-squares fit that stops at its own tolerance)
+# detection threshold moves a segment, 1.454e-03 of FFD on one of 64 beta
+# lanes on an H100 for restorations 1.5e-11 apart, ROADMAP.md), the
+# radial-profile distance by its median (a least-squares fit that stops at
+# its own tolerance)
 APP_METRICS = ('FLUX_FRACTIONAL_DIFFERENCE', 'FWHM_RATIO',
                'ELLIPTICITY_RATIO', 'ORIG_FLUX', 'RESTORED_FLUX')
 
@@ -2843,12 +2860,14 @@ def rank_combined(torch, dist, outdir: str) -> dict:
 
 def rank_main(args: list) -> int:
     """A rank of a phase 31-33 world: ``--rank <backend> <rank> <world>
-    <port> <dir>``. Joins the group on the card, runs its phases, and
-    rank 0 writes the results to ``<dir>/results.npz``."""
+    <port> <dir> <parts>``. Joins the group on the card, runs its phases
+    (``parts`` 'all': phases 31-33 and the examples of phases 37 and 41;
+    'examples': those alone), and rank 0 writes the results to
+    ``<dir>/results.npz``."""
     import torch
     import torch.distributed as dist
     from tpu_sgp_torch.parallel.multiprocess import init_distributed
-    backend, rank, n, port, outdir = args
+    backend, rank, n, port, outdir, parts = args
     rank, n = int(rank), int(n)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2856,12 +2875,17 @@ def rank_main(args: list) -> int:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     init_distributed(f'127.0.0.1:{port}', n, rank, local_device_ids=[0],
                      backend=backend)
-    out = {f'stamps/{k}': v for k, v in rank_stamps(torch, dist, n).items()}
-    out.update({f'frame/{k}': v
-                for k, v in rank_frame(torch, dist, n).items()})
-    if n == 4:
-        out.update({f'combined/{k}': v for k, v in
-                    rank_combined(torch, dist, outdir).items()})
+    out = {}
+    if parts == 'all':
+        out.update({f'stamps/{k}': v
+                    for k, v in rank_stamps(torch, dist, n).items()})
+        out.update({f'frame/{k}': v
+                    for k, v in rank_frame(torch, dist, n).items()})
+        if n == 4:
+            out.update({f'combined/{k}': v for k, v in
+                        rank_combined(torch, dist, outdir).items()})
+    out.update({f'examples/{k}': v
+                for k, v in rank_examples(torch, dist, n).items()})
     every = [None] * n
     dist.all_gather_object(every, str(torch.cuda.current_device()))
     out['devices'] = np.array(every)
@@ -2872,7 +2896,8 @@ def rank_main(args: list) -> int:
     return 0
 
 
-def run_world(backend: str, n: int, env: dict, outdir: str) -> tuple:
+def run_world(backend: str, n: int, env: dict, outdir: str,
+              parts: str = 'all') -> tuple:
     """Start the ``n`` ranks of one world as processes of their own and
     wait for them all, at most MESH_TIMEOUT seconds. A rank that exits
     non-zero or runs past the limit fails the phase; every rank still
@@ -2887,7 +2912,7 @@ def run_world(backend: str, n: int, env: dict, outdir: str) -> tuple:
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), '--rank', backend,
-         str(r), str(n), str(port), outdir], stdout=logs[r],
+         str(r), str(n), str(port), outdir, parts], stdout=logs[r],
         stderr=subprocess.STDOUT, env=dict(os.environ, **env))
         for r in range(n)]
     try:
@@ -2936,8 +2961,9 @@ def phase_mesh(torch, card: str, phase20=None) -> tuple:
     here, the single-device results on the card they are held to, and the
     lines, with phase 20's one-device server (``phase20``, when it ran)
     beside the meshed server's. Returns K1's kernels entries at a rank's
-    shard of the gloo world: of the main path's stamps and of a served
-    batch."""
+    shard of the gloo world, of the main path's stamps and of a served
+    batch, and the worlds' results (phases 37 and 41 read their
+    examples')."""
     import tempfile
     from tpu_sgp_torch import SGPConfig
     from tpu_sgp_torch.kernels.flux_projection import (project_rows,
@@ -3170,7 +3196,328 @@ def phase_mesh(torch, card: str, phase20=None) -> tuple:
     served = worlds['gloo', 4][0]['stamps/server/pallas/f32_served']
     server_shard = dict(launches=int(served[0, 2]), max_abs_err=abs_err,
                         **k1_times(torch, rows), library_ms=None)
-    return shard, server_shard
+    return shard, server_shard, worlds
+
+
+# ---- phases 34-41: the example scripts (examples_torch/) ------------------
+
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'examples_torch')
+HALO_RTOL = 1e-5            # halo apply against the linear apply, float32
+SCAN_REPEATS = 2
+# about 75-90 s: each worker process is recycled after 40 device calls
+# (RSS 250 MB over its level after warm-up recycles it too, if it comes
+# first), so the soak's two or three processes recycle at least twice
+SOAK = dict(minutes=1.25, rss_delta_mb=250.0, batches_per_process=40)
+
+
+def example(name: str):
+    """``examples_torch/<name>.py`` of this checkout, as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f'examples_torch_{name}', os.path.join(EXAMPLES_DIR, f'{name}.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rank_examples(torch, dist, n: int) -> dict:
+    """Phases 37 and 41 in a rank: ``distributed_demo.run`` on the
+    world's meshes (every rank) and, in the world of one NCCL rank,
+    ``time_halo_operator.run`` on its 1x1 mesh at the script's own sizes
+    (410x410, 30 repeats, a chain of 50)."""
+    from tpu_sgp_torch.parallel.distributed import make_image_mesh
+    out = {}
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    r = example('distributed_demo').run()
+    torch.cuda.synchronize()
+    out['demo_wall'] = time.perf_counter() - t0
+    for k in ('mesh', 'shape', 'iters', 'rel_err', 'mesh3', 'shape3',
+              'batch_iters'):
+        out[f'demo_{k}'] = np.asarray(r[k])
+    out['demo_images'] = len(r['imgs'])
+    out['demo_finite'] = bool(np.isfinite(r['x']).all()
+                              and np.isfinite(r['batch_x']).all())
+    if n == 1:
+        t0 = time.perf_counter()
+        h = example('time_halo_operator').run(make_image_mesh())
+        out['halo_wall'] = time.perf_counter() - t0
+        for k in ('tile', 'repeats', 'chain', 'linear_wall_s',
+                  'halo_wall_s', 'ratio', 'max_rel_diff'):
+            out[f'halo_{k}'] = h[k]
+    return out
+
+
+def example_worlds() -> dict:
+    """Phase 31's worlds running the examples of phases 37 and 41 alone
+    (``--from`` past 31): {(backend, ranks): (results, wall seconds)}."""
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        return {(backend, n): run_world(backend, n, env,
+                                        os.path.join(tmp, f'{backend}{n}'),
+                                        'examples')
+                for backend, n, env in MESH_WORLDS}
+
+
+def phase_deconvolve_demo(torch, card: str) -> None:
+    """Phase 34: ``deconvolve_demo.run`` at the demo's sizes: the 256x256
+    field through ``sgp`` and ``sgp_beta_div`` (float32), its FITS files,
+    128 stamps through ``restore_stamps``; every restoration finite, flux
+    within 1e-4."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        r = example('deconvolve_demo').run(out_dir=tmp)
+        files = sorted(os.listdir(tmp))
+    wall = time.perf_counter() - t0
+    print(f'example deconvolve_demo 256x256 float32: {r["n_sources"]} '
+          f'sources, flux {r["flux"]:.0f}; KL-SGP {r["kl_iters"]} iterations,'
+          f' rel_err {r["kl_rel_err"]:.4f}; beta-SGP {r["beta_iters"]} '
+          f'iterations, rel_err {r["beta_rel_err"]:.4f}; {r["stamps"]} stamps '
+          f'in {r["stamps_wall_s"] * 1e3:.1f} ms (median '
+          f'{r["stamps_median_iters"]} iterations); flux rel err max '
+          f'{r["flux_err"]:.3e}; {len(files)} FITS files; {wall:.1f} s '
+          f'[{card}]')
+    check(r['finite'] and bool(np.isfinite([r['kl_rel_err'],
+                                            r['beta_rel_err']]).all()),
+          "the demo's restorations are finite")
+    check(r['flux_err'] <= FLUX_RTOL['float32'], 'the demo conserves flux')
+    check(files == ['field_beta.fits', 'field_kl.fits', 'field_orig.fits'],
+          'the demo writes its three FITS files')
+
+
+def phase_serving_demo(torch, card: str) -> None:
+    """Phase 35: ``serving_demo.run``: buckets 32/64/256 warmed, five
+    request sizes, two streams of 8 x 64 stamps (coalesce 1 and 4), 8
+    client threads x 32 stamps through a ``MicroBatchServer``; finite,
+    flux within 1e-4."""
+    t0 = time.perf_counter()
+    r = example('serving_demo').run()
+    wall = time.perf_counter() - t0
+    reqs = ', '.join(f'{n}: {w * 1e3:.1f} ms ({m})'
+                     for n, w, m in r['batches'])
+    streams = ', '.join(f'coalesce {c}: {n} stamps in {w * 1e3:.1f} ms'
+                        for c, n, w in r['streams'])
+    print(f'example serving_demo float32: warmup of buckets 32/64/256 '
+          f'{r["warmup_s"]:.2f} s; requests (stamps: wall, median '
+          f'iterations) {reqs}; streams {streams}; 8 clients x 32 stamps '
+          f'in {r["server_s"] * 1e3:.1f} ms, {r["server_calls"]} device '
+          f'calls; flux rel err max {r["flux_err"]:.3e}; {wall:.1f} s '
+          f'[{card}]')
+    check(r['finite'] and r['flux_err'] <= FLUX_RTOL['float32'],
+          "the demo's requests are finite and conserve flux")
+    check([n for _, n, _ in r['streams']] == [512, 512]
+          and r['server_calls'] >= 1, 'every stream and client served')
+
+
+def phase_allsky_map(torch, card: str) -> None:
+    """Phase 36: ``build_allsky_map.run(96)``: four 96x96 TAN tiles,
+    their backgrounds, one ``restore_stamps`` batch (float32) and the HPX
+    coadd; finite tiles and figures."""
+    t0 = time.perf_counter()
+    r = example('build_allsky_map').run(96)
+    wall = time.perf_counter() - t0
+    print(f'example build_allsky_map 4x96x96 float32: backgrounds '
+          f'{np.round(r["est_bkg"], 2).tolist()}, iterations '
+          f'{r["iters"].tolist()}, {r["core_px"]} full-footprint px, '
+          f'source-free level {r["resid_median"]:+.3f} +- '
+          f'{r["resid_std"]:.3f} ADU, aperture flux map/true '
+          f'{r["flux_ratio"]:.4f}; {wall:.1f} s [{card}]')
+    check(bool(np.isfinite(r['restored']).all()) and bool(np.isfinite(
+        [r['resid_median'], r['resid_std'], r['flux_ratio']]).all()),
+        'the all-sky chain is finite')
+
+
+def phase_halo_timing(card: str, worlds: dict) -> None:
+    """Phase 37: ``time_halo_operator.run`` in the world of one NCCL rank
+    (phase 31's): A+AT of the halo operator's local apply on the 1x1 mesh
+    against the linear operator, a chain of 50 in a Python loop, best of
+    30; one apply of each within 1e-5 relative in float32."""
+    r = worlds['nccl', 1][0]
+    chain = int(r['examples/halo_chain'])
+    lin, halo = (float(r[f'examples/halo_{k}_wall_s'])
+                 for k in ('linear', 'halo'))
+    rel = float(r['examples/halo_max_rel_diff'])
+    print(f'example time_halo_operator {int(r["examples/halo_tile"])}x'
+          f'{int(r["examples/halo_tile"])} float32, one NCCL rank, 1x1 mesh '
+          f'(best of {int(r["examples/halo_repeats"])}, chain {chain}): '
+          f'linear A+AT {lin * 1e3 / chain:.4f} ms/apply, halo A+AT '
+          f'{halo * 1e3 / chain:.4f} ms/apply, ratio '
+          f'{float(r["examples/halo_ratio"]):.3f}x, max rel diff {rel:.3e} '
+          f'(limit {HALO_RTOL:.0e}); {float(r["examples/halo_wall"]):.1f} s '
+          f'[{card}]')
+    check(rel <= HALO_RTOL, 'the halo apply equals the linear apply')
+
+
+def phase_scan_compaction(torch, card: str) -> None:
+    """Phase 38: ``scan_compaction.run`` for KL and beta at B=12288 over
+    the JAX script's grids, best of 2 walls a point; findings only (the
+    pinned 26/2048 and 28/2048 stay)."""
+    mod = example('scan_compaction')
+    pinned = {'kl': (PATHS['kl bisect'][1]['phase1_iters'],
+                     PATHS['kl bisect'][1]['tail_bucket']),
+              'beta': (PATHS['beta section'][1]['phase1_iters'],
+                       PATHS['beta section'][1]['tail_bucket'])}
+    for which in ('kl', 'beta'):
+        t0 = time.perf_counter()
+        points = mod.run(which, repeats=SCAN_REPEATS)
+        wall = time.perf_counter() - t0
+        for p in points:
+            print(f'example scan_compaction {which} B={p["n"]} p1={p["p1"]} '
+                  f'tail={p["tail"]}: {p["stamps_s"]:.1f} stamps/s (wall '
+                  f'{p["wall_s"] * 1e3:.1f} ms, best of {SCAN_REPEATS}), '
+                  f'unconverged@p1={p["unconverged"]}, iterations median '
+                  f'{p["iters_median"]:g} max {p["iters_max"]} [{card}]')
+            check(np.isfinite(p['wall_s']) and p['wall_s'] > 0,
+                  'a finite wall')
+        best = max(points, key=lambda p: p['stamps_s'])
+        held = [p['stamps_s'] for p in points
+                if (p['p1'], p['tail']) == pinned[which]]
+        beside = (f'{held[0]:.1f} ({held[0] / best["stamps_s"]:.3f} of the '
+                  f'best)' if held else 'not on the grid')
+        print(f'example scan_compaction {which}: best p1={best["p1"]} '
+              f'tail={best["tail"]} {best["stamps_s"]:.1f} stamps/s; the '
+              f'pinned {pinned[which][0]}/{pinned[which][1]} {beside}; '
+              f'{wall:.1f} s [{card}]')
+
+
+def batch_shape_probe(torch) -> str:
+    """What solving the 410x410 frame as lane 0 of a batch of two changes
+    on the card, against the frame alone: max|diff| of the 'linear'
+    operator's A and AT, of a plain row sum, of a plain sum over (B, 7, N)
+    rows (the warm projection's seven section points a lane) and of the
+    compensated sum (``gsum_ff``); x after fixed iterations of the
+    stable-sums solve (stop rule 1), relative; and the stop-rule-3
+    iterations at 1e-5 of both shapes with stable_sums on and off."""
+    from tpu_sgp_torch import SGPConfig
+    from tpu_sgp_torch.ops.psf_operator import make_linear_operator
+    from tpu_sgp_torch.ops.reduce import gsum_ff
+    from tpu_sgp_torch.solvers.sgp import solve
+    img, psf = frame_inputs()
+    one = torch.as_tensor(img, dtype=torch.float32, device='cuda')[None]
+    two = torch.cat([one, one])
+    kern = torch.as_tensor(psf, dtype=torch.float32, device='cuda')
+    A, AT = make_linear_operator(kern, one.shape[1:])
+    parts = []
+    for name, fn in (
+            ('A', A), ('AT', AT),
+            ('row sum', lambda x: x.reshape(x.shape[0], -1).sum(-1)),
+            ('(B, 7, N) sum', lambda x: (x.reshape(x.shape[0], 1, -1)
+                                         * torch.linspace(0.5, 1.5, 7,
+                                                          device='cuda')
+                                         [:, None]).sum(-1)),
+            ('gsum_ff', lambda x: gsum_ff(x.reshape(x.shape[0], -1)))):
+        d = float((fn(one)[0] - fn(two)[0]).abs().max())
+        parts.append(f'{name} {d:.3e}')
+
+    def frame(gn, **kw):
+        z = torch.zeros_like(gn)
+        return solve(gn, kern, torch.full_like(gn, FRAME_BKG), z, 0.0, z,
+                     1.0, 1e-3, 0.0, SGPConfig(**{**FRAME_BASE, **kw}))
+
+    for k in (1, 2, 5, 10, 20, 40):
+        xs = [frame(gn, max_iter=k, stop_criterion=1, stable_sums=True).x[0]
+              for gn in (one, two)]
+        rel = float((xs[0] - xs[1]).abs().max() / xs[0].abs().max())
+        parts.append(f'x after {k} {rel:.3e}')
+    for stable in (True, False):
+        it = [int(frame(gn, **{**FRAME_CONVERGED, 'stable_sums': stable})
+                  .iters[0]) for gn in (one, two)]
+        parts.append(f'stop rule 3 stable_sums={stable} {it[0]} alone, '
+                     f'{it[1]} in two')
+    return ', '.join(parts)
+
+
+def phase_determinism(card: str, beside=None) -> None:
+    """Phase 39: what a batch of two changes against the frame alone
+    (``batch_shape_probe``); then ``determinism_check.orchestrate`` at
+    410x410: six fresh processes side by side on the card, stable_sums
+    True and False, each under three perturbations; the stable arm must
+    agree. ``beside`` (phase 40's soak) runs in this thread while the six
+    runs go on: the runs compare iteration counts and the soak counts
+    requests, recycles and RSS, so neither reads a time that the other
+    moves."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    print(f'example determinism_check batch of two against one, lane 0: '
+          f'{batch_shape_probe(torch)} [{card}]')
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        runs = pool.submit(example('determinism_check').orchestrate)
+        if beside is not None:
+            beside()
+        r = runs.result()
+    wall = time.perf_counter() - t0
+    for (stable, name), line in r['lines'].items():
+        print(f'example determinism_check stable={stable} perturb={name}: '
+              f'{line} [{card}]')
+    for line in r['verdict']:
+        print(f'example determinism_check: {line.splitlines()[0]}')
+    if r['code'] == 1:
+        print('\n'.join(r['verdict']), file=sys.stderr)
+    print(f'example determinism_check: the six runs and phase 40 beside '
+          f'them in {wall:.1f} s [{card}]' if beside is not None else
+          f'example determinism_check: the six runs in {wall:.1f} s '
+          f'[{card}]')
+    check(r['code'] == 0, 'stable_sums=True agrees across fresh processes '
+          'and perturbations')
+
+
+def phase_soak(card: str) -> None:
+    """Phase 40: ``serving_recycle_soak.supervise`` for about 75-90 s:
+    worker processes of 6 client threads each against a
+    ``MicroBatchServer(max_batch=1024)`` recycled by its watchdog (40
+    device calls, or RSS 250 MB over its level after warm-up); zero loss,
+    at least two recycles; each process's RSS curve."""
+    t0 = time.perf_counter()
+    r = example('serving_recycle_soak').supervise(**SOAK)
+    wall = time.perf_counter() - t0
+    for i, c in enumerate(r['cycles'], 1):
+        if 'died' in c:
+            print(f'example serving_recycle_soak cycle {i}: the worker died:'
+                  f'\n{c["died"]}', file=sys.stderr)
+            continue
+        growth = ((c['end_rss_mb'] - c['base_rss_mb'])
+                  / max(c['batches'], 1) * 1e3)
+        print(f'example serving_recycle_soak cycle {i}: '
+              f'{c["completed"]}/{c["submitted"]} requests, {c["batches"]} '
+              f'device calls, recycled={c["recycled"]}, rss '
+              f'{c["base_rss_mb"]} -> {c["end_rss_mb"]} MB '
+              f'({growth:+.1f} MB per 1000 device calls) in {c["wall_s"]} s;'
+              f' rss every 2 s {c["rss_curve_mb"]} [{card}]')
+    print(f'example serving_recycle_soak: {"SOAK OK" if r["ok"] else "FAIL"}'
+          f', {len(r["cycles"])} processes, {r["recycles"]} recycles, '
+          f'{r["completed"]}/{r["submitted"]} requests; {wall:.1f} s '
+          f'[{card}]')
+    check(r['code'] == 0 and r['recycles'] >= 2,
+          'the soak loses no request and recycles at least twice')
+
+
+def phase_distributed_demo(card: str, worlds: dict) -> None:
+    """Phase 41: ``distributed_demo.run`` in phase 31's worlds (an NCCL
+    rank, four gloo ranks sharing the card): the sharded frame and the
+    batch of frames, float32; finite, within the demo's 60 iterations."""
+    for backend, n, _ in MESH_WORLDS:
+        r = worlds[backend, n][0]
+        (h, w), mesh = r['examples/demo_shape'], r['examples/demo_mesh']
+        (h3, w3), mesh3 = (r['examples/demo_shape3'],
+                           r['examples/demo_mesh3'])
+        iters = int(r['examples/demo_iters'])
+        biters = r['examples/demo_batch_iters']
+        print(f'example distributed_demo {backend} x{n}: {h}x{w} on '
+              f'{"x".join(map(str, mesh.tolist()))}: {iters} iterations, '
+              f'rel_err vs truth {float(r["examples/demo_rel_err"]):.4f}; '
+              f'{int(r["examples/demo_images"])} images of {h3}x{w3} on '
+              f'{"x".join(map(str, mesh3.tolist()))}: iterations '
+              f'{biters.tolist()}; {float(r["examples/demo_wall"]):.2f} s on '
+              f'rank 0 [{card}]')
+        check(bool(r['examples/demo_finite']) and 0 < iters <= 60
+              and bool((biters <= 60).all()),
+              f'the distributed demo on {backend} x{n}')
 
 
 def main() -> int:
@@ -3199,6 +3546,13 @@ def main() -> int:
     if first > 2:
         raw: dict = {}
         served: dict = {}
+        worlds: dict = {}
+
+        def ran_worlds() -> dict:
+            # phases 37 and 41 read phase 31's worlds, or run them alone
+            if not worlds:
+                worlds.update(example_worlds())
+            return worlds
         for number, phase in ((13, lambda: phase_long_rows(torch)),
                               (14, lambda: phase_operators(torch)),
                               (15, lambda: phase_frame(torch, card)),
@@ -3220,8 +3574,22 @@ def main() -> int:
                                   phase_raw_frame(torch, card))),
                               (30, lambda: phase_nan_guard(
                                   torch, raw or centre_inputs())),
-                              (31, lambda: phase_mesh(
-                                  torch, card, served or None))):
+                              (31, lambda: worlds.update(phase_mesh(
+                                  torch, card, served or None)[2])),
+                              (34, lambda: phase_deconvolve_demo(torch,
+                                                                 card)),
+                              (35, lambda: phase_serving_demo(torch, card)),
+                              (36, lambda: phase_allsky_map(torch, card)),
+                              (37, lambda: phase_halo_timing(
+                                  card, ran_worlds())),
+                              (38, lambda: phase_scan_compaction(torch,
+                                                                 card)),
+                              (39, lambda: phase_determinism(
+                                  card, beside=lambda: phase_soak(card))),
+                              (40, lambda: phase_soak(card)
+                               if first == 40 else None),
+                              (41, lambda: phase_distributed_demo(
+                                  card, ran_worlds()))):
             if number >= first:
                 phase()
         print(f'partial run from phase {first}: no result')
@@ -3272,12 +3640,28 @@ def main() -> int:
 
     # 31-33
     meshes = time.perf_counter()
-    shard, server_shard = phase_mesh(torch, card, served)
+    shard, server_shard, worlds = phase_mesh(torch, card, served)
+
+    # 34-41 (37 and 41 ran in phase 31's worlds)
+    examples = time.perf_counter()
+    phase_deconvolve_demo(torch, card)
+    phase_serving_demo(torch, card)
+    phase_allsky_map(torch, card)
+    phase_halo_timing(card, worlds)
+    phase_scan_compaction(torch, card)
+    phase_determinism(card, beside=lambda: phase_soak(card))
+    phase_distributed_demo(card, worlds)
     done = time.perf_counter()
+    in_worlds = sum(float(w[0].get('examples/demo_wall', 0.0))
+                    + float(w[0].get('examples/halo_wall', 0.0))
+                    for w in worlds.values())
     print(f'wall: phases 1-23 {apps - started:.1f} s, the applications '
           f'(24-28) {chain - apps:.1f} s, the raw-frame chain and the NaN '
           f'guard (29-30) {meshes - chain:.1f} s, the multi-rank worlds '
-          f'(31-33) {done - meshes:.1f} s, all {done - started:.1f} s')
+          f'(31-33, with the examples of 37 and 41) '
+          f'{examples - meshes:.1f} s, the examples (34-41) '
+          f'{done - examples:.1f} s and {in_worlds:.1f} s in the worlds, '
+          f'all {done - started:.1f} s')
 
     k1 = {'route': 'cuda', 'source': 'tpu_sgp_torch/csrc/flux_projection.cu',
           'replaces': 'tpu_sgp/experimental/pallas_projection.py:40'}

@@ -9,6 +9,7 @@ with one torch thread, and rank 0 writes the results to ``<out>/<suite>.npz``
 same arrays). The worker imports no JAX: a rank starts in a few seconds.
 ``run_world`` starts the four ranks from a test.
 """
+import importlib.util
 import os
 import subprocess
 import sys
@@ -278,6 +279,71 @@ def case_server(out, meshed, alone, stamps, bkgs, fluxes):
         alive=np.array(alive), refused=np.array(refused))
 
 
+def example(name):
+    """``examples_torch/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f'examples_torch_{name}',
+        os.path.join(REPO, 'examples_torch', f'{name}.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+HALO_TILE = 410     # the halo timing's default tile, for the agreement
+
+
+def case_examples(out):
+    """The distributed demo as written (float32, on the world's 2x2 and
+    (2, 1, 2) meshes), and its two solves again in float64 on the same
+    inputs; the halo timing on a 1x1 mesh of each rank at a small size,
+    and one apply of the halo operator against the linear one there in
+    float32 and float64 at the timing's own tile. Every rank builds the
+    four one-rank meshes and their flattened groups, since a process
+    group is made by the whole world; each then works on its own."""
+    from tpu_sgp_torch.ops.mesh import MeshAxes
+    from tpu_sgp_torch.ops.psf_operator import (make_halo_operator,
+                                                make_linear_operator)
+    from tpu_sgp_torch.parallel.distributed import (make_batch_image_mesh,
+                                                    make_image_mesh,
+                                                    solve_distributed,
+                                                    solve_distributed_batch)
+    from tpu_sgp_torch.simulate import gaussian_psf
+    demo = example('distributed_demo')
+    r = demo.run(device=CPU)
+    put(out, 'demo', **{k: v for k, v in r.items() if k != 'devices'})
+    cfg64 = SGPConfig(**dict(demo.CFG, dtype='float64'))
+    one = solve_distributed(r['image'], r['psf'], 150.0, cfg64,
+                            make_image_mesh(device_type=CPU))
+    batch = solve_distributed_batch(r['imgs'], r['psf3'], 150.0, cfg64,
+                                    make_batch_image_mesh(device_type=CPU))
+    put(out, 'demo64', x=one.x.numpy(), iters=one.iters.numpy(),
+        batch_x=batch.x.numpy(), batch_iters=batch.iters.numpy())
+
+    rank = dist.get_rank()
+    meshes = [make_image_mesh((1, 1), ranks=[q], device_type=CPU)
+              for q in range(WORLD)]
+    for m in meshes:
+        m[('ty', 'tx')]._flatten()
+    timed = example('time_halo_operator').run(meshes[rank], tile=64,
+                                              repeats=2, chain=3)
+    axes = MeshAxes(meshes[rank], ('ty', 'tx'))
+    rng = np.random.default_rng(7)
+    rel = {}
+    for dt in (torch.float32, torch.float64):
+        img = torch.as_tensor(rng.uniform(10, 1000, (1, HALO_TILE,
+                                                     HALO_TILE)), dtype=dt)
+        psf = torch.as_tensor(gaussian_psf(31, fwhm=3.0), dtype=dt)
+        A, AT = make_linear_operator(psf, (HALO_TILE, HALO_TILE))
+        Ah, ATh = make_halo_operator(psf, (HALO_TILE, HALO_TILE), axes)
+        a, b = AT(A(img)), ATh(Ah(img))
+        rel[str(dt)[6:]] = float((a - b).abs().max() / a.abs().max())
+    every = [None] * WORLD
+    dist.all_gather_object(every, (timed['ratio'], timed['max_rel_diff'],
+                                   timed['linear_wall_s'], rel['float32'],
+                                   rel['float64']))
+    out['halo_ranks'] = np.array(every)
+
+
 def run_distributed(outdir):
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -298,6 +364,7 @@ def run_distributed(outdir):
     case_batch(out, meshes)
     case_resume(out, meshes, outdir)
     case_stamps(out, meshes)
+    case_examples(out)
     return out
 
 

@@ -313,3 +313,77 @@ def test_meshes_without_a_card_raise():
                    None, 1.0, 1e-3, 0.0,
                    tsgp.SGPConfig(axis_names=('ty', 'tx'), operator='halo'),
                    device='cpu')
+
+
+# ---- the example scripts (examples_torch/) -----------------------------------
+
+# The demo's float32 frames part like any whole frame (ROADMAP "Limits"): the
+# JAX package's own float32 solve of the 256x256 field stops at 47, 60, 53
+# and 59 iterations on 1, 2, 4 and 8 devices, with rel_err 0.1352, 0.1277,
+# 0.1315 and 0.1303 and x up to 1.6e-2 of max|x| apart (on the CPU). So the
+# float32 demo is held to JAX's float32 solve on the same mesh by these
+# bars, about JAX's spread against itself; float64 is held lane for lane.
+DEMO_F32_REL_ERR = 1e-2
+DEMO_F32_X = 2e-2
+
+
+def test_distributed_demo_matches_jax(world):
+    """``examples_torch/distributed_demo.py`` on the four ranks: the
+    256x256 field on the 2x2 mesh and four 64x128 fields on (2, 1, 2), as
+    the JAX demo lays them out on four devices. Its two solves run again
+    in float64 on the same inputs equal JAX's: equal iterations, x within
+    1e-9. The demo as written (float32): finite, within its 60
+    iterations, rel_err and x within the bars above of JAX's float32
+    solves of the same inputs on the same meshes."""
+    from tpu_sgp.metrics import relative_error
+    z, _ = world
+    demo_cfg = spmd.example('distributed_demo').CFG
+    assert tuple(z['demo_mesh']) == (2, 2)
+    assert tuple(z['demo_mesh3']) == (2, 1, 2)
+    assert z['demo_x'].shape == (256, 256)
+    assert z['demo_batch_x'].shape == (4, 64, 128)
+    mesh = _jax_mesh2()
+    bmesh = jdist.make_batch_image_mesh(devices=jax.devices()[:WORLD])
+
+    def jax_solves(dtype):
+        cfg = JaxConfig(**dict(demo_cfg, dtype=dtype))
+        return (jdist.solve_distributed(z['demo_image'], z['demo_psf'],
+                                        150.0, cfg, mesh),
+                jdist.solve_distributed_batch(z['demo_imgs'],
+                                              z['demo_psf3'], 150.0, cfg,
+                                              bmesh))
+
+    one, batch = jax_solves('float64')
+    assert int(z['demo64_iters']) == int(one.iters)
+    np.testing.assert_array_equal(z['demo64_batch_iters'],
+                                  np.asarray(batch.iters))
+    assert _rel(z['demo64_x'], one.x) <= RTOL
+    assert _rel(z['demo64_batch_x'], batch.x) <= RTOL
+
+    one, batch = jax_solves('float32')
+    _, _, truth = spmd.synthetic_star_field(256, 256, n_stars=40,
+                                            psf_size=31, fwhm=2.5, seed=3)
+    want = relative_error(np.maximum(np.asarray(one.x), 0), truth + 150.0)
+    assert abs(float(z['demo_rel_err']) - want) <= DEMO_F32_REL_ERR
+    assert _rel(z['demo_x'], one.x) <= DEMO_F32_X
+    assert _rel(z['demo_batch_x'], batch.x) <= DEMO_F32_X
+    assert np.isfinite(z['demo_x']).all()
+    assert np.isfinite(z['demo_batch_x']).all()
+    assert 0 < int(z['demo_iters']) <= demo_cfg['max_iter']
+    assert (z['demo_batch_iters'] <= demo_cfg['max_iter']).all()
+
+
+def test_time_halo_operator_on_one_rank_meshes(world):
+    """``examples_torch/time_halo_operator.py`` on a 1x1 mesh of each of
+    the four ranks (64x64, 2 repeats, a chain of 3): a positive ratio and
+    a single apply within 1e-5 of the linear operator; at the timing's own
+    410x410 tile the halo apply equals the linear one within 1e-5 in
+    float32 (the bar ``chip_smoke.py`` holds on the card) and 1e-12 in
+    float64."""
+    z, _ = world
+    ranks = z['halo_ranks']
+    assert ranks.shape == (WORLD, 5)
+    ratio, rel, wall, rel32, rel64 = ranks.T
+    assert (ratio > 0).all() and (wall > 0).all()
+    assert (rel <= 1e-5).all()
+    assert (rel32 <= 1e-5).all() and (rel64 <= 1e-12).all()
