@@ -31,10 +31,14 @@ Phases, one line of output each (or a few):
   7. the whole-solver path at full width: ``solve_stamps_pallas`` on the
      same 12288 stamps as phase 4, one launch a call, its iterations against
      phase 4's; the kernel alone and its plain version timed, and held
-     against each other at this shape;
+     against each other at this shape; its bound with the operator on the
+     tensor cores (three TF32 products) and with everything on the FP32
+     pipes;
   8. the whole-solver kernel's operator alone against the dense circulant
-     product, float32 and float64; its time at phase 7's count of operator
-     applications, as a share of the kernel's time;
+     product, float32 (on the tensor cores) and float64; the tensor cores'
+     instructions (HMMA) in every float32 instantiation and in no float64
+     one; its time at phase 7's count of operator applications, as a share
+     of the kernel's time, beside cuBLAS's float32 GEMM of the same count;
   9. each plain-PyTorch projection method ('bisect', 'section', 'sort',
      'secant', warm 'bisect') on the card against the CPU at (12288, 961),
      float32 and float64, with and without saturation; each one's time and
@@ -224,9 +228,13 @@ TRUTH_RATIO = 1.5
 K2_FULL_REL = {'median': 1e-3, 'p95': 2e-2}
 K2_FULL_REL_SAME = {'median': 5e-4, 'p95': 6e-3, 'max': 7e-2}
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 FLOP/s outside
-# the tensor cores
+# the tensor cores, dense TF32 FLOP/s on the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
+# K2's float32 operator: three TF32 products a multiply-add (hi*hi + hi*lo
+# + lo*hi) keep float32 accuracy
+TF32_PASSES = 3
 # phase 13: the long rows, (rows, pixels): one 410x410 frame, four 256x256
 LONG_ROWS = ((1, 410 * 410), (4, 256 * 256))
 # phases 15-16: the JAX bench's whole-frame workload (bench.py:387-413): a
@@ -272,13 +280,25 @@ def projection_case(torch, rows: int, n: int, dtype, has_sat: bool,
     return t(b), t(c), t(dia), t(cap) if has_sat else torch.zeros_like(t(b))
 
 
-def bound(bytes_moved: float, ops: float) -> dict:
+def bound(bytes_moved: float, ops: float, tf32_ops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the float32 operations over the float32 peak."""
+    the memory rate and the operations over their peaks, the float32
+    operations ``ops`` over the FP32 pipes' and the TF32 products
+    ``tf32_ops`` over the tensor cores'."""
     t_bytes = bytes_moved / HBM_BYTES_S * 1e3
-    t_ops = ops / F32_FLOP_S * 1e3
+    t_ops = (ops / F32_FLOP_S + tf32_ops / TF32_FLOP_S) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by='bytes' if t_bytes >= t_ops else 'operations')
+
+
+def instance_name(line: str):
+    """``kernel<type,threads,...>`` of the mangled kernel instantiation
+    named in a line of a compiler's report, or None."""
+    m = re.search(r"([a-z_]+_kernel)I([fd])((?:Li\d+E)*)", line)
+    if not m:
+        return None
+    return f'{m[1]}<' + ','.join([m[2]] + re.findall(r'Li(\d+)E', m[3])) \
+        + '>'
 
 
 def ptxas_summary(log: str) -> dict:
@@ -287,10 +307,8 @@ def ptxas_summary(log: str) -> dict:
     as ``R regs spill S/L B smem M B``."""
     out, name, spill = {}, None, ''
     for ln in log.splitlines():
-        m = re.search(r"([a-z_]+_kernel)I([fd])((?:Li\d+E)*)", ln)
-        if 'Compiling entry function' in ln and m:
-            args = ','.join([m[2]] + re.findall(r'Li(\d+)E', m[3]))
-            name = f'{m[1]}<{args}>'
+        if 'Compiling entry function' in ln and instance_name(ln):
+            name = instance_name(ln)
             continue
         m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
                       ln)
@@ -301,6 +319,25 @@ def ptxas_summary(log: str) -> dict:
         if m and name:
             out[name] = f'{m[1]} regs {spill} smem {m[2] or 0} B'
             name = None
+    return out
+
+
+def sass_count(lib_path, opcode: str) -> dict:
+    """Instructions of ``opcode`` (e.g. ``HMMA``, the tensor cores'
+    matrix product) in every kernel instantiation of a built library, from
+    ``cuobjdump -sass``, by name as ``ptxas_summary`` names them."""
+    from pathlib import Path
+    from tpu_sgp_torch.kernels import _build
+    sass = run([str(Path(_build.nvcc()).with_name('cuobjdump')), '-sass',
+                str(lib_path)])
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if 'Function :' in ln:
+            name = instance_name(ln)
+            if name:
+                out[name] = 0
+        elif name and re.search(rf'\b{opcode}\b', ln):
+            out[name] += 1
     return out
 
 
@@ -610,6 +647,38 @@ def phase_k2_vs_plain(torch) -> None:
                       f'{TRUTH_RATIO}x the plain version\'s')
 
 
+def k2_full_width_agree(torch, x, it, xp, ip, what: str) -> float:
+    """Phase 7's limits of one float32 stop-rule-3 solve of the main path's
+    (B, N) rows, ``(x, it)``, against another, ``(xp, ip)``: finite, equal
+    median iterations, mean |diters| <= 1, per-lane max|dx|/max|x| within
+    ``K2_FULL_REL`` over all lanes and ``K2_FULL_REL_SAME`` over the lanes
+    of equal iterations. Prints the readings; returns max|dx|."""
+    it, ip = it.cpu().numpy().astype(int), ip.cpu().numpy().astype(int)
+    diff = np.abs(it - ip)
+    rel = ((x - xp).abs().amax(1) / xp.abs().amax(1)).cpu().numpy()
+    same = rel[diff == 0]
+    max_abs = float((x - xp).abs().max())
+    print(f'{what} B={x.shape[0]} float32 stop 3: iters median '
+          f'{np.median(it):g} vs {np.median(ip):g}, max {it.max()} vs '
+          f'{ip.max()}, mean |diters|={diff.mean():.4f}, |diters| histogram '
+          f'{np.bincount(diff).tolist()}, per-lane max|dx|/max|x| median '
+          f'{np.median(rel):.3e} p95 {np.percentile(rel, 95):.3e} max '
+          f'{rel.max():.3e} (lanes of equal iterations: median '
+          f'{np.median(same):.3e} p95 {np.percentile(same, 95):.3e} max '
+          f'{same.max():.3e}), max|dx|={max_abs:.4f}')
+    check(bool(torch.isfinite(x).all()), f'{what}: finite x')
+    check(np.median(it) == np.median(ip), f'{what}: median iterations equal')
+    check(diff.mean() <= 1.0, f'{what}: mean |diters| <= 1')
+    check(np.median(rel) <= K2_FULL_REL['median']
+          and np.percentile(rel, 95) <= K2_FULL_REL['p95'],
+          f'{what}: x within {K2_FULL_REL}')
+    check(np.median(same) <= K2_FULL_REL_SAME['median']
+          and np.percentile(same, 95) <= K2_FULL_REL_SAME['p95']
+          and same.max() <= K2_FULL_REL_SAME['max'],
+          f'{what}, lanes of equal iterations: x within {K2_FULL_REL_SAME}')
+    return max_abs
+
+
 def phase_k2_full(torch, card: str, unfused_wall: float,
                   unfused_iters) -> dict:
     """Phase 7: ``solve_stamps_pallas`` at full width on phase 4's inputs,
@@ -671,43 +740,29 @@ def phase_k2_full(torch, card: str, unfused_wall: float,
     plain_ms = time_ms(
         torch, lambda: out.update(plain=solve_rows_plain(*args, cfg)), reps=1)
     (xk, ik), (xp, ip) = out['kernel'], out['plain']
-    ik, ip = ik.cpu().numpy().astype(int), ip.cpu().numpy().astype(int)
-    diff = np.abs(ik - ip)
-    rel = ((xk - xp).abs().amax(1) / xp.abs().amax(1)).cpu().numpy()
-    same = rel[diff == 0]
-    max_abs = float((xk - xp).abs().max())
-    print(f'K2 kernel vs plain B={MAIN_B} float32 stop 3: iters median '
-          f'{np.median(ik):g} vs {np.median(ip):g}, max {ik.max()} vs '
-          f'{ip.max()}, mean |diters|={diff.mean():.4f}, |diters| histogram '
-          f'{np.bincount(diff).tolist()}, per-lane max|dx|/max|x| median '
-          f'{np.median(rel):.3e} p95 {np.percentile(rel, 95):.3e} max '
-          f'{rel.max():.3e} (lanes of equal iterations: median '
-          f'{np.median(same):.3e} p95 {np.percentile(same, 95):.3e} max '
-          f'{same.max():.3e}), max|dx|={max_abs:.4f}')
-    check(bool(torch.isfinite(xk).all()), 'K2 full width: finite kernel x')
-    check(np.median(ik) == np.median(ip),
-          'K2 full width: median iterations equal to the plain version\'s')
-    check(diff.mean() <= 1.0, 'K2 full width: mean |diters| <= 1')
-    check(np.median(rel) <= K2_FULL_REL['median']
-          and np.percentile(rel, 95) <= K2_FULL_REL['p95'],
-          f'K2 full width: x within {K2_FULL_REL} of the plain version')
-    check(np.median(same) <= K2_FULL_REL_SAME['median']
-          and np.percentile(same, 95) <= K2_FULL_REL_SAME['p95']
-          and same.max() <= K2_FULL_REL_SAME['max'],
-          f'K2 full width, lanes of equal iterations: x within '
-          f'{K2_FULL_REL_SAME} of the plain version')
+    max_abs = k2_full_width_agree(torch, xk, ik, xp, ip,
+                                  'K2 kernel vs plain')
+    ik = ik.cpu().numpy().astype(int)
     # this run's work: each lane applies the 961-tap operator 3 + 2 * iters
     # times (N^2 multiply-adds of 2 operations each) and projects 1 + iters
     # times (per bisection step and pixel an add, a divide, a max, a min and
     # the sum's add, and about 8 operations around the bisection); read the
-    # stamps, backgrounds, fluxes, levels and taps once, write x and iters
+    # stamps, backgrounds, fluxes, levels and taps once, write x and iters.
+    # Two bounds: everything on the FP32 pipes, and the kernel's own split,
+    # the operator as TF32_PASSES TF32 products on the tensor cores and the
+    # rest on the FP32 pipes
     n = N_PIX
-    ops = float(((3 + 2 * it) * 2 * n * n
-                 + (1 + it) * (bracket_bits(torch.float32) * 5 + 8) * n).sum())
-    k2_bound = bound((3 * MAIN_B * n + 3 * MAIN_B + n) * 4, ops)
+    op_flop = float(((3 + 2 * it) * 2 * n * n).sum())
+    rest = float(((1 + it) * (bracket_bits(torch.float32) * 5 + 8) * n).sum())
+    moved = (3 * MAIN_B * n + 3 * MAIN_B + n) * 4
+    pipes = bound(moved, op_flop + rest)
+    k2_bound = bound(moved, rest, TF32_PASSES * op_flop)
     print(f'K2 kernel time ({MAIN_B}, {n}) float32: kernel {ms:.4f} ms, '
           f'plain {plain_ms:.4f} ms, bound {k2_bound["bound_ms"]:.4f} ms '
-          f'({k2_bound["bound_by"]}, {ops / 1e12:.4f} TFLOP)')
+          f'({k2_bound["bound_by"]}: the operator\'s {op_flop / 1e12:.4f} '
+          f'TFLOP as {TF32_PASSES} TF32 products on the tensor cores, '
+          f'{rest / 1e12:.4f} TFLOP on the FP32 pipes), '
+          f'{pipes["bound_ms"]:.4f} ms all on the FP32 pipes')
     return dict(launches=counts[0], max_abs_err=max_abs, ms=ms,
                 plain_ms=plain_ms, **k2_bound,
                 library_ms=None), int((3 + 2 * ik).sum())
@@ -717,13 +772,19 @@ def phase_operator(torch, k2_ms: float, applications: int) -> None:
     """Phase 8: K2's operator alone (``apply_operator``, the solver's own
     device code) against its plain twin, the dense circulant product, on
     main-path rows and taps: ``(AT A) x`` to ``OPERATOR_TOL`` of max|x|
-    (only the order of the sums differs). Then its time at phase 7's own
-    count of applications (``3 + 2 * iters`` a lane, summed), as a share of
-    the kernel's ``k2_ms``, beside the plain twin's time for the same
-    count."""
+    (float32 on the tensor cores in three TF32 products, float64 on the
+    FP64 pipes; the sums' order differs). The tensor cores' matrix products
+    (``HMMA``) in each instantiation of the built library: some in every
+    float32 one, none in a float64 one. Then the operator's time at phase
+    7's own count of applications (``3 + 2 * iters`` a lane, summed), as a
+    share of the kernel's ``k2_ms``, beside the plain twin's time and one
+    dense float32 GEMM a product (``torch.matmul``, cuBLAS) as the
+    library's yardstick for the same count."""
     from tpu_sgp_torch.experimental.pallas_batch import stamp_rows
+    from tpu_sgp_torch.kernels import _build
     from tpu_sgp_torch.kernels.stamp_solver import (apply_operator,
                                                     apply_operator_plain)
+    from tpu_sgp_torch.ops.psf_operator import build_circulant_matrix
     inputs = main_path_inputs(MAIN_B)
     for name, tol in OPERATOR_TOL.items():
         dtype = getattr(torch, name)
@@ -736,22 +797,43 @@ def phase_operator(torch, k2_ms: float, applications: int) -> None:
               f'max|dy|/max|x|={rel:.3e} (limit {tol:.0e})')
         check(bool(torch.isfinite(got).all()), f'{name}: finite operator')
         check(rel <= tol, f'{name}: operator agrees with the dense product')
+    hmma = sass_count(_build.library_path('stamp_solver'), 'HMMA')
+    print('K2 HMMA instructions (cuobjdump -sass): ' + ', '.join(
+        f'{k} {v}' for k, v in hmma.items()))
+    for kernel in ('solve_stamps_kernel', 'apply_operator_kernel'):
+        for t, on in (('f', True), ('d', False)):
+            counts = [v for k, v in hmma.items()
+                      if k.startswith(f'{kernel}<{t},')]
+            check(bool(counts) and all((v > 0) == on for v in counts),
+                  f'{kernel}<{t}>: tensor-core products '
+                  f'{"in every" if on else "in no"} instantiation')
     gn, _, _, _, taps = stamp_rows(*inputs, SAT_LEVEL, torch.float32, 'cuda')
     gn = gn / gn.amax(1, keepdim=True)
     reps = max(1, round(applications / (2 * MAIN_B)))
     scale = applications / (2 * MAIN_B * reps)
+    cmat = build_circulant_matrix(torch.fft.ifftshift(taps))
+
+    def library():
+        y = gn
+        for _ in range(reps):
+            y = torch.matmul(torch.matmul(y, cmat.T), cmat)
+        return y
+
     ms = time_ms(torch, lambda: apply_operator(gn, taps, reps), reps=3) * scale
     plain_ms = time_ms(torch, lambda: apply_operator_plain(gn, taps, reps),
                        reps=3) * scale
+    library_ms = time_ms(torch, library, reps=3) * scale
     flop = 2.0 * N_PIX * N_PIX * applications
     print(f'K2 operator time ({MAIN_B}, {N_PIX}) float32 at phase 7\'s '
           f'{applications} applications ({reps} x (AT A) a row, scaled by '
           f'{scale:.4f}, {apply_operator.resident} blocks/SM as the '
           f'solver): {ms:.4f} ms, {flop / ms / 1e9:.2f} TFLOP/s '
           f'({100 * flop / ms / 1e-3 / F32_FLOP_S:.1f} % of the float32 '
-          f'peak), {100 * ms / k2_ms:.1f} % of the kernel\'s {k2_ms:.4f} '
-          f'ms; the rest {k2_ms - ms:.4f} ms; dense product {plain_ms:.4f} '
-          f'ms')
+          f'peak, {100 * TF32_PASSES * flop / ms / 1e-3 / TF32_FLOP_S:.1f} '
+          f'% of the TF32 peak in its {TF32_PASSES} products), '
+          f'{100 * ms / k2_ms:.1f} % of the kernel\'s {k2_ms:.4f} ms; the '
+          f'rest {k2_ms - ms:.4f} ms; plain {plain_ms:.4f} ms; cuBLAS '
+          f'float32 GEMM (torch.matmul) {library_ms:.4f} ms')
 
 
 def count_launches(torch, fn) -> tuple:

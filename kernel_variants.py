@@ -4,16 +4,21 @@
     python3 kernel_variants.py
 
 Each variant is a copy of ``tpu_sgp_torch/csrc/<kernel>.cu`` with one
-design constant or launch rule changed, built side by side with the port's
-nvcc flags into ``build/kernel_variants/``. Each is timed through the
-port's own wrapper (CUDA events) at the main path's shapes on one set of
-seeded operands, in the order listed and then in reverse. The variants
-change speed, not arithmetic: each result must equal that of the kernel as
-built, or the script fails (on K1's long row the variants sum in another
-order, so x is held to 1e-5 of max|x| there). K1's long row, one 410x410
-frame, is also timed on the one-block-a-row path beside the grid path. Prints the card, the ptxas line of the main
-path's instantiation of every variant, and one line a timing. Exits
-non-zero without a GPU.
+design constant, launch rule or layout changed, built side by side with
+the port's nvcc flags into ``build/kernel_variants/``. Each is timed
+through the port's own wrapper (CUDA events) at the main path's shapes on
+one set of seeded operands, in the order listed and then in reverse: K2
+whole and its operator alone at phase 7's count of applications. The variants change
+speed, not arithmetic: each result must equal that of the kernel as built,
+or the script fails. Two compare otherwise: on K1's long row the variants
+sum in another order, so x is held to 1e-5 of max|x| there; K2 with its
+float32 operator on the FP32 pipes (the earlier design) sums in another
+order too, so its operator is held to ``chip_smoke.OPERATOR_TOL`` and its
+solve to chip_smoke.py phase 7's limits against the kernel as built. K1's
+long row, one 410x410 frame, is also timed on the one-block-a-row path
+beside the grid path. Prints the card, the ptxas line of the main path's
+instantiations and the tensor cores' instructions (HMMA) in them for every
+variant, and one line a timing. Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ import chip_smoke as cs
 
 CSRC = Path(__file__).resolve().parent / 'tpu_sgp_torch' / 'csrc'
 OUT = Path(__file__).resolve().parent / 'build' / 'kernel_variants'
+# K2's float32 operator on the FP32 pipes: its results differ from the
+# tensor cores' within chip_smoke.py's limits, not bit for bit
+FP32_PIPES = 'FP32-pipe operator (the earlier float32 design)'
 # (kernel, variant) -> edits of the source, (old, new) each
 VARIANTS = {
     ('stamp_solver', 'as built'): [],
@@ -33,10 +41,39 @@ VARIANTS = {
         ('constexpr int kDepth = 1;', 'constexpr int kDepth = 2;')],
     ('stamp_solver', 'bisection depth 3'): [
         ('constexpr int kDepth = 1;', 'constexpr int kDepth = 3;')],
-    ('stamp_solver', 'no register cap (3 blocks an SM)'): [
+    ('stamp_solver', 'no register cap'): [
         ('sizeof(T) == 4 && MAXT == 128 ? 4 : 1', '1')],
     ('stamp_solver', 'tap row length read at run time'): [
         ('if (threads <= 128 && lay.pitch == 32)', 'if (false)')],
+    ('stamp_solver', FP32_PIPES): [
+        ('struct Design<float> : TensorCoreDesign {};',
+         'struct Design<float> : PipeDesign<float> {};')],
+    # lane (g, t) takes reduction columns 2t and 2t + 1 of a k-step, so its
+    # two A values of a row are one 8-byte load (rows 8 banks apart)
+    ('stamp_solver', 'k-step columns paired, A by 8-byte loads'): [
+        ('stride(pitch + 4)', 'stride(pitch + 8)'),
+        ('arow0 = (row % L.h) * L.stride + t;',
+         'arow0 = (row % L.h) * L.stride + 2 * t;'),
+        ('arow1 = ((row + 8) % L.h) * L.stride + t;',
+         'arow1 = ((row + 8) % L.h) * L.stride + 2 * t;'),
+        ('boff = p - 1 + t - g - 16 * ni;',
+         'boff = p - 1 + 2 * t - g - 16 * ni;'),
+        ('b_frag(tb - 8 * dir, 4 * dir, prev);',
+         'b_frag(tb - 8 * dir, dir, prev);'),
+        ('b_frag(tb + dir * c0, 4 * dir, cur);',
+         'b_frag(tb + dir * c0, dir, cur);'),
+        ('__float_as_uint(r0[c0]), __float_as_uint(r1[c0]),\n'
+         '            __float_as_uint(r0[c0 + 4]), __float_as_uint(r1[c0 + 4])',
+         'PAIR(r0, 0).x, PAIR(r1, 0).x, PAIR(r0, 0).y, PAIR(r1, 0).y'),
+        ('__float_as_uint(r0[lo_x + c0]),\n'
+         '                                __float_as_uint(r1[lo_x + c0]),\n'
+         '                                __float_as_uint(r0[lo_x + c0 + 4]),\n'
+         '                                __float_as_uint(r1[lo_x + c0 + 4])',
+         'PAIR(r0, lo_x).x, PAIR(r1, lo_x).x, PAIR(r0, lo_x).y, '
+         'PAIR(r1, lo_x).y'),
+        ('struct TcPatch {',
+         '#define PAIR(r, o) (*reinterpret_cast<const uint2*>(r + o + c0))\n'
+         'struct TcPatch {')],
     ('flux_projection', 'as built'): [],
     ('flux_projection', '8 rows a block'): [
         ('constexpr int kRowWarps = 4;', 'constexpr int kRowWarps = 8;')],
@@ -46,6 +83,7 @@ VARIANTS = {
         ('constexpr int kGridPer = 4;', 'constexpr int kGridPer = 2;')],
 }
 MAIN_INSTANCES = ('solve_stamps_kernel<f,128,',
+                  'apply_operator_kernel<f,128,',
                   'project_rows_warp_kernel<f,32>',
                   'project_rows_grid_kernel<f,')
 LONG_ROW = cs.LONG_ROWS[0]
@@ -53,7 +91,7 @@ LONG_ROW = cs.LONG_ROWS[0]
 
 def build(key):
     """nvcc on the edited copy; returns the library and its main-path
-    ptxas entries."""
+    ptxas entries, each with its HMMA count."""
     from tpu_sgp_torch.kernels import _build
     kernel, variant = key
     text = (CSRC / f'{kernel}.cu').read_text()
@@ -74,7 +112,8 @@ def build(key):
         raise RuntimeError(f'nvcc failed on {kernel} "{variant}":\n'
                            f'{proc.stdout}{proc.stderr}')
     report = cs.ptxas_summary(proc.stdout + proc.stderr)
-    return lib, {k: v for k, v in report.items()
+    hmma = cs.sass_count(lib, 'HMMA')
+    return lib, {k: f'{v} HMMA {hmma.get(k, 0)}' for k, v in report.items()
                  if k.startswith(MAIN_INSTANCES)}
 
 
@@ -119,13 +158,26 @@ def main() -> int:
         kernel = key[0]
         _build._LOADED[kernel] = ctypes.CDLL(str(built[key][0]))
         wrappers[kernel]._entry.cache_clear()
-        if kernel == 'flux_projection':
+        if kernel == 'stamp_solver':
+            stamp_solver._operator_entry.cache_clear()
+        else:
             flux_projection.launch_plan.cache_clear()
+
+    # K2's operator alone at phase 7's count of applications (chip_smoke.py
+    # phase 8), from the kernel as built
+    use(('stamp_solver', 'as built'))
+    iters = stamp_solver.solve_rows(*k2_args, cfg)[1]
+    reps = max(1, round(int((3 + 2 * iters).sum()) / (2 * cs.MAIN_B)))
+    gn, taps = k2_args[0], k2_args[4]
+    unit = gn / gn.amax(1, keepdim=True)
+    once = stamp_solver.apply_operator(gn, taps, 1)
 
     def cases(kernel):
         if kernel == 'stamp_solver':
             return [(f'({cs.MAIN_B}, {cs.N_PIX})', 5,
-                     lambda: stamp_solver.solve_rows(*k2_args, cfg))]
+                     lambda: stamp_solver.solve_rows(*k2_args, cfg)),
+                    (f'operator ({cs.MAIN_B}, {cs.N_PIX}) {reps} x (AT A)', 3,
+                     lambda: stamp_solver.apply_operator(unit, taps, reps))]
         long_row = lambda path: flux_projection.project_rows(
             *long_args, steps, False, path=path)
         return [(f'({rows}, {cs.N_PIX})', 50,
@@ -134,21 +186,32 @@ def main() -> int:
             (f'{LONG_ROW} grid path', 50, lambda: long_row('grid')),
             (f'{LONG_ROW} one block a row', 20, lambda: long_row('rows'))]
 
+    def agrees(key, shape, got, base) -> bool:
+        """The variant's result against the kernel as built's."""
+        if 'grid path' in shape:
+            return float((got[0] - base[0]).abs().max()
+                         / base[0].abs().max()) <= 1e-5
+        if key[1] != FP32_PIPES:
+            return all(torch.equal(a, b) for a, b in zip(got, base))
+        if shape.startswith('operator'):   # phase 8's check, one (AT A)
+            one = stamp_solver.apply_operator(gn, taps, 1)
+            return float((one - once).abs().max() / gn.abs().max()) \
+                <= cs.OPERATOR_TOL['float32']
+        cs.k2_full_width_agree(torch, *got, *base,
+                               f'K2 "{key[1]}" vs as built')
+        return True
+
     first = {}
     order = list(VARIANTS) + list(reversed(VARIANTS))
     for key in order:
         use(key)
-        for shape, reps, fn in cases(key[0]):
+        for shape, n, fn in cases(key[0]):
             out = {}
-            ms = cs.time_ms(torch, lambda: out.update(r=fn()), reps=reps)
+            ms = cs.time_ms(torch, lambda: out.update(r=fn()), reps=n)
             got = out['r'] if isinstance(out['r'], tuple) else (out['r'],)
             base = first.setdefault((key[0], shape), got)
-            if 'grid path' in shape:
-                same = float((got[0] - base[0]).abs().max()
-                             / base[0].abs().max()) <= 1e-5
-            else:
-                same = all(torch.equal(a, b) for a, b in zip(got, base))
-            cs.check(same, f'{key[0]} "{key[1]}" {shape}: result equals '
+            cs.check(agrees(key, shape, got, base),
+                     f'{key[0]} "{key[1]}" {shape}: result agrees with '
                      f'the kernel as built')
             print(f'{key[0]} "{key[1]}" {shape} float32: {ms:.4f} ms',
                   flush=True)

@@ -225,12 +225,14 @@ def test_operator_plain_matches_jax_operator(h, w):
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.float64, 1e-12)])
 @pytest.mark.parametrize('h,w', [(7, 7), (16, 16), (5, 9), (31, 31),
-                                 (40, 40), (64, 64)])
+                                 (40, 40), (64, 64), (63, 65)])
 def test_operator_matches_dense_product_on_card(dtype, tol, h, w):
     """The kernel's operator alone, (AT A) x, against the dense circulant
-    product: only the order of the sums differs. 5x9 and 7x7 leave part of
-    a 2x4 patch outside the stamp; 40x40 and 64x64 take 256 and 512
-    threads a block."""
+    product: only the order of the sums differs (float32 on the tensor
+    cores in three TF32 products). 5x9 and 7x7 leave part of a 2x4 patch
+    and of a 16x16 tile outside the stamp; 40x40 and 64x64 take 256 and
+    512 threads a block in float64, 288 and 512 in float32; 63x65, 4095
+    pixels, pads its 16x16 tiles on both sides."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -303,6 +305,11 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
                    taps.half(), cfg)
     with pytest.raises(ValueError, match='shape'):
         solve_rows(gn, bkg, flux[:3], sat, taps, cfg)
+    # float32's 16x16 tiles: 4 x 1024 pixels pad to 64 tiles, 2048 threads
+    narrow = torch.ones(4, 4 * 1024, dtype=torch.float32, device='cuda')
+    with pytest.raises(RuntimeError, match='CUDA error 1'):
+        solve_rows(narrow, narrow, flux, sat,
+                   torch.ones(4, 1024, device='cuda') / 4096, cfg)
 
 
 def f32_spread_report(seeds=(3, 4, 5, 6), repeats=2):

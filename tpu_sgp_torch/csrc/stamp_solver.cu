@@ -18,19 +18,52 @@
 // (j-q) mod W] of the taps k = fftshift(psf):
 //   AT(x)[i][j] = sum_{a,b} k[a][b] * x[(i+a) mod H][(j+b) mod W],
 //   A(x)[i][j]  = sum_{a,b} kf[a][b] * x[(i+1+a) mod H][(j+1+b) mod W],
-// with kf[a][b] = k[H-1-a][W-1-b] the taps flipped. Both are one
-// correlation over the input doubled (every index taken mod H, W) in
-// shared memory, so no index needs a `mod`; full-precision FMAs (no TF32,
-// no tensor cores: the reference pins Precision.HIGHEST).
+// with kf[a][b] = k[H-1-a][W-1-b] the taps flipped. The reference pins
+// Precision.HIGHEST, so every design keeps float32 (float64) accuracy.
 //
 // What bounds it on this card: the operator. A lane makes 3 + 2 * iters
 // applications of N^2 multiply-adds (about 0.92 M at 31 x 31), so the
-// batch is compute-bound on the FP32 pipes by its FLOP count; its bytes
-// (the stamps in, x out) are negligible. The first design read a tap from
-// shared memory for every FMA (about 1.25 shared loads an FMA); measured on
-// the card its operator took 95 % of the kernel's time (PERF.md).
+// batch is compute-bound by its FLOP count; its bytes (the stamps in, x
+// out) are negligible. On the FP32 pipes the operator took 72 % of the
+// kernel's time at 55 % of their peak (PERF.md), so float32 runs it on the
+// tensor cores (TcPatch) and float64 on the FP64 pipes (Patch).
 //
-// What the design does about it:
+// float32, on the tensor cores (TcPatch). For tap row a, AT is one matrix
+// product Y_a = (S_a X) T_a: S_a X is the stamp with its rows shifted
+// cyclically by a, T_a[c][j] = k[a][(c - j) mod W] the circulant of the
+// tap row; A is the same with the flipped taps, one more row of shift and
+// T_a[c][j] = kf[a][(c - j - 1) mod W]. Summed over a, an application is
+// one GEMM of M = H, N = W, K = H * W, padded to M = 16 * ceil(H / 16)
+// output rows and P = 16 * ceil(W / 16) output and reduction columns (32 x
+// 32 x 992 at 31 x 31: 1.016 M multiply-adds against the dense operator's
+// 0.924 M). Each warp owns a 16 x 16 output tile, two m16n8k8 TF32
+// fragments, and the solver's per-pixel state lives in their accumulator
+// layout (8 pixels a thread). The A operand is the input staged in shared
+// memory with its rows doubled (row u holds X[u mod H], columns W..P-1
+// zero), so a shift is an offset. T_a depends on c - j only, so a tap
+// row's B fragments come from one widened row of 2P taps, e = c - j in
+// [-P+1, P-1], and consecutive k-steps share one: a tap row takes P / 8 +
+// 1 B fragments for 2 P / 8 fragment products. Accuracy: HIGHEST is a multi-pass
+// split product on the TPU's matrix unit, and here it is the three-pass
+// TF32 split, v = hi + lo with hi = tf32(v), lo = tf32(v - hi), rounded to
+// nearest, and hi*hi + hi*lo + lo*hi: each TF32 product is exact in
+// float32 and only lo*lo (2^-22 of the product) is dropped. The taps are
+// split once, the input as it is staged, into hi and lo arrays: fewer
+// instructions a product than splitting each fragment as it is loaded.
+// A's widened taps are AT's read backwards (kf[a][(e-1) mod W] = k[H-1-
+// a][-e mod W]), so one table serves both. Every shared load is 4 bytes:
+// pairing a lane's two values of a row into one 8-byte load measured
+// slower (kernel_variants.py). Each k-step's three products start from
+// zero and are added to the float32 accumulator with a rounded add, so no
+// long run of sums stays inside the tensor core's own adder.
+//
+// float64, on the FP64 pipes (Patch): one correlation over the input
+// doubled in rows and columns (every index taken mod H, W) in shared
+// memory, so no index needs a `mod`; full-precision FMAs.
+//
+// What the FP64 design does about the FLOP count (float32's earlier
+// design, which kernel_variants.py still builds for float32 to time the
+// two side by side):
 // - Register tiling. A thread owns a 2 x 4 patch of outputs (rows 2p and
 //   2p + 1, columns 4g .. 4g + 3), and the solver's per-pixel state lives
 //   in the same registers, so the operator's outputs land where they are
@@ -45,6 +78,8 @@
 // - Block shape from the stamp. ceil(H / 2) * ceil(W / 4) threads, 128 at
 //   31 x 31 (4 warps); the template's MAXT (128, 256, 512, 1024) is the
 //   launch bound the compiler allocates registers for.
+//
+// Both designs:
 // - Fewer barriers. One block per stamp, the whole batch in one launch, no
 //   host round trip: a block leaves its loop when its own stop rule fires,
 //   which equals the reference's masked commits. Block reductions go
@@ -297,8 +332,216 @@ struct Patch {
   }
 };
 
+// Round a float32 to TF32 (10 explicit mantissa bits), to nearest with
+// ties away from zero: cvt.rna.tf32.f32 for every finite value, in two
+// integer instructions.
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// d += a * b on the tensor cores: one m16n8k8 TF32 product, float32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The float32 block's shape and shared-memory layout for an h x w stamp:
+// one warp a 16 x 16 output tile of the padded m x p stamp.
+struct TcLayout {
+  int h, w;
+  int m;       // output rows padded to 16
+  int pitch;   // output and reduction columns padded to 16 (p)
+  int tiles;   // 16 x 16 tiles a row of tiles: p / 16
+  int stride;  // row stride of the staged input: p + 4, so that the 8 rows
+               // of a fragment start 4 banks apart
+  int taplen;  // a widened tap row: 2 * p (index e + p - 1, e = c - j)
+
+  __host__ __device__ explicit TcLayout(int h_, int w_)
+      : h(h_), w(w_), m((h_ + 15) / 16 * 16), pitch((w_ + 15) / 16 * 16),
+        tiles(pitch / 16), stride(pitch + 4), taplen(2 * pitch) {}
+
+  __host__ __device__ int threads() const { return 32 * (m / 16) * tiles; }
+  // the widened tap table (h rows), then the input doubled in rows (2h
+  // rows), each as a hi and a lo array
+  __host__ __device__ size_t elems() const {
+    return static_cast<size_t>(2) * h * taplen +
+           static_cast<size_t>(4) * h * stride;
+  }
+};
+
+// A thread's 8 pixels of a stamp on the tensor cores and the float32
+// operator on them. Lane (g, t) = (lane / 4, lane % 4) of the warp of tile
+// (mi, ni) holds the m16n8k8 accumulators of the tile's two 16 x 8
+// fragments: pixel k = 4 * f + r is (16 mi + g + 8 (r / 2), 16 ni + 8 f +
+// 2 t + r % 2); ok[k] marks those inside the stamp. PITCH is p when known
+// at compile time (32: stamps 17 to 32 wide, the main path's 31 among
+// them), which unrolls a tap row's k-steps; 0 reads it from the layout.
+template <int PITCH>
+struct TcPatch {
+  TcLayout L;
+  // AT's widened taps, T[a][e + p - 1] = k[a][e mod w], hi then lo; A's
+  // are the same read backwards: kf[a][(e - 1) mod w] = T[h-1-a][-e + p-1]
+  const float* tap;
+  float* xs;          // (2h, stride): row u holds X[u mod h], zero past w;
+                      // hi, then lo at lo_x
+  int lo_t, lo_x;     // offsets of the lo arrays
+  int base, sbase;    // offset of pixel 0 in the stamp and in xs
+  int arow0, arow1;   // xs offsets of this lane's fragment rows g and g + 8
+  int boff;           // widened tap index of this lane's B element, k-step 0
+  bool ok[kPix];
+
+  __device__ TcPatch(unsigned char* smem, const float* taps,
+                     const TcLayout& lay, int tid)
+      : L(lay) {
+    float* tab = reinterpret_cast<float*>(smem);
+    const int p = L.pitch;
+    lo_t = L.h * L.taplen;
+    lo_x = 2 * L.h * L.stride;
+    tap = tab;
+    xs = tab + 2 * lo_t;
+    for (int i = tid; i < lo_t; i += blockDim.x) {
+      const int a = i / L.taplen, e = i - a * L.taplen - (p - 1);  // c - j
+      const float v = taps[a * L.w + ((e % L.w) + L.w) % L.w];
+      const float hi = __uint_as_float(tf32_rna(v));
+      tab[i] = hi;
+      tab[lo_t + i] = __uint_as_float(tf32_rna(v - hi));
+    }
+    // the reduction's columns past the stamp read zeros (staging never
+    // writes them, so no barrier is needed before the first apply)
+    const int pad = p - L.w;
+    for (int i = tid; i < 2 * L.h * pad; i += blockDim.x) {
+      const int u = i / pad, o = u * L.stride + L.w + (i - u * pad);
+      xs[o] = 0.f;
+      xs[lo_x + o] = 0.f;
+    }
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int mi = warp / L.tiles, ni = warp - mi * L.tiles;
+    const int row = 16 * mi + g, col = 16 * ni + 2 * t;
+    base = row * L.w + col;
+    sbase = row * L.stride + col;
+    // padded output rows read a real row (their outputs are dropped)
+    arow0 = (row % L.h) * L.stride + t;
+    arow1 = ((row + 8) % L.h) * L.stride + t;
+    boff = p - 1 + t - g - 16 * ni;
+#pragma unroll
+    for (int k = 0; k < kPix; ++k)
+      ok[k] = row + 8 * ((k >> 1) & 1) < L.h &&
+              col + 8 * (k >> 2) + (k & 1) < L.w;
+  }
+
+  // offset of pixel k in the row-major stamp
+  __device__ __forceinline__ int index(int k) const {
+    return base + 8 * ((k >> 1) & 1) * L.w + 8 * (k >> 2) + (k & 1);
+  }
+
+  // acc[f .. f + 3] += one k-step of a fragment, a * b with b = (b hi,
+  // b hi, b lo, b lo) for its two rows: lo*hi, hi*lo, then hi*hi from
+  // zero, added to the accumulators with float32 adds
+  __device__ __forceinline__ static void step(float (&acc)[kPix], int f,
+                                              const unsigned (&ah)[4],
+                                              const unsigned (&al)[4],
+                                              const unsigned (&b)[4]) {
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(d, al, b[0], b[1]);
+    mma_tf32(d, ah, b[2], b[3]);
+    mma_tf32(d, ah, b[0], b[1]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[f + r] += d[r];
+  }
+
+  // the B fragment whose first row's taps lie at t[0] and its second's at
+  // t[four] (4 along the table for AT, -4 for A), as (hi, hi, lo, lo)
+  __device__ __forceinline__ void b_frag(const float* t, int four,
+                                         unsigned (&b)[4]) const {
+    b[0] = __float_as_uint(t[0]);
+    b[1] = __float_as_uint(t[four]);
+    b[2] = __float_as_uint(t[lo_t]);
+    b[3] = __float_as_uint(t[lo_t + four]);
+  }
+
+  // out = A(v) (transpose false) or AT(v) (transpose true) at this
+  // thread's pixels. The input is split and staged in xs behind one
+  // barrier; sync_first adds one before, where no barrier separates this
+  // call from the last call's reads of xs.
+  __device__ void apply(bool transpose, const float (&v)[kPix],
+                        float (&out)[kPix], bool sync_first) {
+    const int p = PITCH ? PITCH : L.pitch;
+    if (sync_first) __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      if (!ok[k]) continue;
+      const int o = sbase + 8 * ((k >> 1) & 1) * L.stride + 8 * (k >> 2) +
+                    (k & 1);
+      const float hi = __uint_as_float(tf32_rna(v[k]));
+      const float lo = __uint_as_float(tf32_rna(v[k] - hi));
+      xs[o] = hi;
+      xs[o + L.h * L.stride] = hi;
+      xs[lo_x + o] = lo;
+      xs[lo_x + o + L.h * L.stride] = lo;
+    }
+    __syncthreads();
+    float acc[kPix];
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) acc[k] = 0.f;
+    // A reads its rows one further down than AT, and its taps backwards
+    const int shift = transpose ? 0 : L.stride;
+    const int dir = transpose ? 1 : -1;
+    for (int a = 0; a < L.h; ++a) {
+      const float* r0 = xs + arow0 + shift + a * L.stride;
+      const float* r1 = xs + arow1 + shift + a * L.stride;
+      const float* tb = transpose ? tap + a * L.taplen + boff
+                                  : tap + (L.h - 1 - a) * L.taplen +
+                                        (2 * p - 2 - boff);
+      // B of the k-step before the first, for the second fragment
+      unsigned prev[4];
+      b_frag(tb - 8 * dir, 4 * dir, prev);
+#pragma unroll
+      for (int c0 = 0; c0 < p; c0 += 8) {
+        const unsigned ah[4] = {
+            __float_as_uint(r0[c0]), __float_as_uint(r1[c0]),
+            __float_as_uint(r0[c0 + 4]), __float_as_uint(r1[c0 + 4])};
+        const unsigned al[4] = {__float_as_uint(r0[lo_x + c0]),
+                                __float_as_uint(r1[lo_x + c0]),
+                                __float_as_uint(r0[lo_x + c0 + 4]),
+                                __float_as_uint(r1[lo_x + c0 + 4])};
+        unsigned cur[4];
+        b_frag(tb + dir * c0, 4 * dir, cur);
+        // fragment f of the tile takes B at c - j = c0 - 8 f: cur, prev
+        step(acc, 0, ah, al, cur);
+        step(acc, 4, ah, al, prev);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) prev[q] = cur[q];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) out[k] = acc[k];
+  }
+};
+
+// The operator of each element type: float32 on the tensor cores, float64
+// on the FP64 pipes. kernel_variants.py builds a copy with float32 on the
+// FP32 pipes (Patch<float>), to time the two designs side by side.
+template <typename T>
+struct PipeDesign {
+  using Shape = Layout;
+  template <int PITCH>
+  using Op = Patch<T, PITCH>;
+};
+struct TensorCoreDesign {
+  using Shape = TcLayout;
+  template <int PITCH>
+  using Op = TcPatch<PITCH>;
+};
+template <typename T>
+struct Design : PipeDesign<T> {};
+template <>
+struct Design<float> : TensorCoreDesign {};
+
 // At the main path's 128 threads a float32 block is held to 128 registers,
-// so 4 blocks share an SM: 46.3 ms against 49.9 ms for 3 blocks at 166
+// so 4 blocks share an SM: 37.0 ms against 48.6 ms for 2 blocks at 193
 // registers, at the main path's shape on an H100 (kernel_variants.py).
 template <typename T, int MAXT, int PITCH>
 __global__ void __launch_bounds__(MAXT,
@@ -319,7 +562,9 @@ solve_stamps_kernel(const T* __restrict__ gn_in, const T* __restrict__ bkg_in,
                                : T(2.220446049250313e-16);
   const T inf = T(CUDART_INF);
 
-  Patch<T, PITCH> op(smem, taps, Layout(prm.h, prm.w), tid);
+  using D = Design<T>;
+  typename D::template Op<PITCH> op(smem, taps,
+                                    typename D::Shape(prm.h, prm.w), tid);
   const bool(&ok)[kPix] = op.ok;
   T gn[kPix], bkg[kPix];
 #pragma unroll
@@ -571,7 +816,9 @@ apply_operator_kernel(const T* __restrict__ x_in, const T* __restrict__ taps,
                       T* __restrict__ out, int h, int w, int reps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t off = static_cast<size_t>(blockIdx.x) * h * w;
-  Patch<T, PITCH> op(smem, taps, Layout(h, w), threadIdx.x);
+  using D = Design<T>;
+  typename D::template Op<PITCH> op(smem, taps, typename D::Shape(h, w),
+                                    threadIdx.x);
   T v[kPix], t[kPix];
 #pragma unroll
   for (int k = 0; k < kPix; ++k)
@@ -586,10 +833,10 @@ apply_operator_kernel(const T* __restrict__ x_in, const T* __restrict__ taps,
 }
 
 // Call f(MAXT, PITCH) with the instantiation for an h x w stamp's block:
-// its launch bound, and the tap row length where the block of 128 threads
+// its launch bound, and the layout's pitch where a block of 128 threads
 // has it fixed at 32; an error if the block would exceed 1024 threads.
-template <class F>
-int by_shape(const Layout& lay, F&& f) {
+template <class Shape, class F>
+int by_shape(const Shape& lay, F&& f) {
   using std::integral_constant;
   const int threads = lay.threads();
   if (threads <= 128 && lay.pitch == 32)
@@ -623,7 +870,7 @@ int launch(const void* gn, const void* bkg, const void* flux, const void* sat,
   const int n = prm->n;
   if (n <= 0 || n > 4096 || prm->h * prm->w != n)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout lay(prm->h, prm->w);
+  const typename Design<T>::Shape lay(prm->h, prm->w);
   return by_shape(lay, [&](auto maxt, auto pitch) {
     const auto kernel = solve_stamps_kernel<T, decltype(maxt)::value,
                                             decltype(pitch)::value>;
@@ -652,7 +899,7 @@ int launch_operator(const void* x, const void* taps, void* out, int rows,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (h <= 0 || w <= 0 || h * w > 4096 || reps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout lay(h, w);
+  const typename Design<T>::Shape lay(h, w);
   return by_shape(lay, [&](auto maxt, auto pitch) {
     constexpr int kMaxt = decltype(maxt)::value;
     constexpr int kPitch = decltype(pitch)::value;
@@ -685,7 +932,7 @@ int launch_operator(const void* x, const void* taps, void* out, int rows,
 // and its name as chip_smoke.py prints ptxas's report.
 template <typename T>
 int occupancy(int h, int w, int* blocks, char* name, int len) {
-  const Layout lay(h, w);
+  const typename Design<T>::Shape lay(h, w);
   return by_shape(lay, [&](auto maxt, auto pitch) {
     constexpr int kMaxt = decltype(maxt)::value;
     constexpr int kPitch = decltype(pitch)::value;

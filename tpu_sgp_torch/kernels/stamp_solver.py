@@ -12,9 +12,15 @@ The operator is the dense circulant of ``ops.psf_operator.
 build_circulant_matrix``: ``A(x) = C x`` is a circular convolution by the
 H*W taps ``k = fftshift(psf)`` and ``AT(x) = C^T x`` a circular
 correlation. The kernel takes the taps; the plain version builds C from
-them. A block has ceil(H/2) * ceil(W/4) threads, each owning a 2 x 4 patch
-of pixels, at most 1024; a stamp shape past that, or whose tap tables and
-doubled input exceed the card's shared memory, fails to launch.
+them. In float32 the kernel runs the operator on the tensor cores, as
+three TF32 products a multiply-add (hi*hi + hi*lo + lo*hi of each value's
+TF32 split), which keeps float32 accuracy as the reference's
+``Precision.HIGHEST`` does: a block has one warp a 16 x 16 tile of the
+stamp padded to multiples of 16, 32 * ceil(H/16) * ceil(W/16) threads. In
+float64 it runs on the FP64 pipes: ceil(H/2) * ceil(W/4) threads, each
+owning a 2 x 4 patch of pixels. A stamp shape past 1024 threads (in
+float32, a side under 8 pixels against one over 512), or whose tap tables
+and staged input exceed the card's shared memory, fails to launch.
 
 ``solve_rows`` launches ``csrc/stamp_solver.cu`` for CUDA tensors and calls
 ``solve_rows_plain`` for CPU tensors; a CUDA call that cannot launch
@@ -327,8 +333,9 @@ def apply_operator(x: torch.Tensor, taps: torch.Tensor,
                    reps: int) -> torch.Tensor:
     """The whole-solver kernel's operator alone: ``(AT A)^reps`` on every
     row of ``x`` (B, N), through the same device code as ``solve_rows``'s
-    kernel, one block a row, with no more blocks an SM than the solver
-    keeps (``apply_operator.resident`` holds that count after a launch).
+    kernel (float32 on the tensor cores, float64 on the FP64 pipes), one
+    block a row, with no more blocks an SM than the solver keeps
+    (``apply_operator.resident`` holds that count after a launch).
     It measures the operator's share of the kernel's time; the solver never
     calls it. CPU tensors take ``apply_operator_plain``."""
     if x.dim() != 2 or taps.dim() != 2 or taps.numel() != x.shape[1]:
