@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--from N]
 
-With ``--from N`` (13 to 41) phases 3 to N - 1 are skipped and no result is
+With ``--from N`` (13 to 42) phases 3 to N - 1 are skipped and no result is
 printed: a short run for work on the later phases. ``--rank ...`` is the
 entry of one rank of phases 31-33 (``rank_main``), which the script starts
 itself.
@@ -36,9 +36,10 @@ Phases, one line of output each (or a few):
      pipes;
   8. the whole-solver kernel's operator alone against the dense circulant
      product, float32 (on the tensor cores) and float64; the tensor cores'
-     instructions (HMMA) in every float32 instantiation and in no float64
-     one; its time at phase 7's count of operator applications, as a share
-     of the kernel's time, beside cuBLAS's float32 GEMM of the same count;
+     instructions (HMMA) in every TcPatch instantiation and in no Patch one
+     (float32 on the FP32 pipes, float64); its time at phase 7's count of
+     operator applications, as a share of the kernel's time, beside
+     cuBLAS's float32 GEMM of the same count;
   9. each plain-PyTorch projection method ('bisect', 'section', 'sort',
      'secant', warm 'bisect') on the card against the CPU at (12288, 961),
      float32 and float64, with and without saturation; each one's time and
@@ -161,8 +162,23 @@ Phases, one line of output each (or a few):
      calls a process (zero loss, at least two recycles, the RSS curves);
      41: ``distributed_demo`` in phase 31's two worlds. They launch
      neither kernel.
+ 42. K2's shapes: the whole-solver kernel on each route of its launch plan
+     past the main path's (TcPatch on 31x31), 64 stamps of one shape a
+     route: float32 240x17 (TcPatch on the transposes), 4x1024
+     (Patch<float> on the FP32 pipes) and 2048x2 (Patch<float> on the
+     transposes), float64 31x31 and 240x17 (Patch<double>, the second on
+     the transposes); each through ``solve_stamps_pallas`` with its launch
+     counted on its route, against its plain version with phase 6's
+     limits (two of them widened at one shape each, ``K2_ROUTE_LIMITS``)
+     and, in float32 stop rule 1, against the float64 truth as phase 6;
+     its block (threads, shared bytes, blocks an SM) as the card reports
+     it against the plan's, its time beside its bound; float64 4x1024,
+     which fits no block, raises ``ValueError`` before any launch; and the
+     plan's block of each design against the card's for every shape up to
+     4096 pixels.
 
-Then a JSON line of the kernels, the ``nvidia-smi`` line, and last
+Then a JSON line of the kernels (K2's entry lists the routes it launched,
+each with its launches, time and bound), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
 exits non-zero and prints no result. It exits non-zero without a GPU.
 """
@@ -220,6 +236,17 @@ K2_F32_REL = {'median': 2e-4, 'p95': 2e-3, 'max': 1e-2}
 # the same run against float64 truth: the kernel's median and 95th
 # percentile no more than this times the plain version's (phase 6)
 TRUTH_RATIO = 1.5
+# Phase 42's float32 stamps (one star in up to 4096 pixels) are less well
+# conditioned than the main path's: at two shapes two float32 summation
+# orders part past one of phase 6's limits. On the H100, 4x1024 stop rule
+# 1: the kernel against the plain version per-lane p95 3.961e-03 and max
+# 2.387e-02, the plain version against itself on the stamps' transposes
+# 3.431e-03 and 4.057e-02; 2048x2 stop rule 3: median iterations 22.5 and
+# 21, mean |diters| 1.3281, the plain version against itself 1 and 1.8125
+# (PERF.md). There those limits are about twice the kernel's readings;
+# phase 6's hold elsewhere:
+K2_ROUTE_LIMITS = {(4, 1024): {'p95': 8e-3, 'max': 5e-2},
+                   (2048, 2): {'d_median_iters': 3.0, 'mean_d_iters': 2.7}}
 # Stop rule 3 at full width (phase 7), where a lane may also stop some
 # iterations earlier or later on one side (the iteration counts are held
 # as distributions), so x is held over all lanes by median and 95th
@@ -232,9 +259,21 @@ K2_FULL_REL_SAME = {'median': 5e-4, 'p95': 6e-3, 'max': 7e-2}
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 TF32_FLOP_S = 495e12
+# float64 FLOP/s outside the tensor cores and dense on them (the same
+# data sheet); a float64 bound takes the tensor cores' rate for the
+# operator's products, the card's best for the type
+F64_FLOP_S = 34e12
+F64_TC_FLOP_S = 67e12
 # K2's float32 operator: three TF32 products a multiply-add (hi*hi + hi*lo
 # + lo*hi) keep float32 accuracy
 TF32_PASSES = 3
+# phase 42: one stamp shape a route of K2's plan past the main path's
+# (TcPatch on 31x31): TcPatch transposed, Patch<float>, Patch<float>
+# transposed, Patch<double>, Patch<double> transposed; B stamps each
+K2_ROUTES = (('float32', (240, 17)), ('float32', (4, 1024)),
+             ('float32', (2048, 2)), ('float64', (31, 31)),
+             ('float64', (240, 17)))
+K2_ROUTE_B = 64
 # phase 13: the long rows, (rows, pixels): one 410x410 frame, four 256x256
 LONG_ROWS = ((1, 410 * 410), (4, 256 * 256))
 # phases 15-16: the JAX bench's whole-frame workload (bench.py:387-413): a
@@ -280,13 +319,15 @@ def projection_case(torch, rows: int, n: int, dtype, has_sat: bool,
     return t(b), t(c), t(dia), t(cap) if has_sat else torch.zeros_like(t(b))
 
 
-def bound(bytes_moved: float, ops: float, tf32_ops: float = 0.0) -> dict:
+def bound(bytes_moved: float, ops: float, tc_ops: float = 0.0,
+          ops_rate: float = F32_FLOP_S, tc_rate: float = TF32_FLOP_S) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over their peaks, the float32
-    operations ``ops`` over the FP32 pipes' and the TF32 products
-    ``tf32_ops`` over the tensor cores'."""
+    the memory rate and the operations over their peaks, the operations
+    ``ops`` over the pipes' ``ops_rate`` (float32 unless given) and the
+    products ``tc_ops`` over the tensor cores' ``tc_rate`` (TF32 unless
+    given)."""
     t_bytes = bytes_moved / HBM_BYTES_S * 1e3
-    t_ops = (ops / F32_FLOP_S + tf32_ops / TF32_FLOP_S) * 1e3
+    t_ops = (ops / ops_rate + tc_ops / tc_rate) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by='bytes' if t_bytes >= t_ops else 'operations')
 
@@ -573,55 +614,101 @@ def phase_card_vs_cpu(torch, path: str = 'pallas') -> None:
             check(diff.mean() <= 1.0, 'float32: mean |diters| <= 1')
 
 
+K2_CASES = (('float64 stop 3', dict(dtype='float64')),
+            ('float32 stop 3', {}),
+            ('float32 stop 1 max_iter=20',
+             dict(stop_criterion=1, max_iter=20)))
+
+
+def k2_spread(x, it, xp, ip) -> dict:
+    """How far one solve of (B, N) rows, ``(x, it)``, lies from another,
+    ``(xp, ip)``: |difference of the median iterations|, mean |diters|
+    and the median, 95th percentile and max of the per-lane
+    max|dx|/max|x|."""
+    it, ip = it.cpu().numpy().astype(int), ip.cpu().numpy().astype(int)
+    rel = ((x - xp).abs().amax(1) / xp.abs().amax(1)).cpu().numpy()
+    return {'d_median_iters': abs(float(np.median(it) - np.median(ip))),
+            'mean_d_iters': float(np.abs(it - ip).mean()),
+            'median': float(np.median(rel)),
+            'p95': float(np.percentile(rel, 95)), 'max': float(rel.max())}
+
+
+def k2_against_plain(torch, what: str, cfg, x, it, xp, ip, fluxes,
+                     limits=None) -> float:
+    """Phase 6's limits of one kernel solve of (B, N) rows, ``(x, it)``,
+    against its plain version's ``(xp, ip)`` on the same CUDA tensors:
+    finite, every row's flux kept within ``FLUX_RTOL``; float64 equal
+    per-lane iterations and x to 1e-7 relative; float32 stop rule 3 equal
+    medians, mean |diters| <= 1 (see phase 5); float32 stop rule 1 per-lane
+    max|dx|/max|x| within ``K2_F32_REL``. ``limits`` replaces some of the
+    float32 limits (``K2_ROUTE_LIMITS``). Prints the readings; returns
+    max|dx|."""
+    check(bool(torch.isfinite(x).all()), f'{what}: finite kernel x')
+    flux = float(np.abs(x.double().sum(1).cpu().numpy() / fluxes - 1).max())
+    check(flux <= FLUX_RTOL[cfg.dtype], f'{what}: kernel conserves flux')
+    got = k2_spread(x, it, xp, ip)
+    it, ip = it.cpu().numpy().astype(int), ip.cpu().numpy().astype(int)
+    print(f'{what}: iters median {np.median(it):g} vs {np.median(ip):g}, '
+          f'max {it.max()} vs {ip.max()}, mean |diters|='
+          f'{got["mean_d_iters"]:.4f}, per-lane max|dx|/max|x| median '
+          f'{got["median"]:.3e} p95 {got["p95"]:.3e} max {got["max"]:.3e}, '
+          f'flux rel err={flux:.3e}')
+    if cfg.dtype == 'float64':
+        check(np.array_equal(it, ip), f'{what}: equal per-lane iterations')
+        check(got['max'] <= 1e-7, f'{what}: x agrees to 1e-7')
+        return float((x - xp).abs().max())
+    limit = {'d_median_iters': 0.0, 'mean_d_iters': 1.0, **K2_F32_REL,
+             **(limits or {})}
+    keys = (('d_median_iters', 'mean_d_iters') if cfg.stop_criterion == 3
+            else tuple(K2_F32_REL))
+    for k in keys:
+        check(got[k] <= limit[k], f'{what}: {k} {got[k]:.4g} within '
+              f'{limit[k]:.4g}')
+    return float((x - xp).abs().max())
+
+
+def k2_against_truth(torch, what: str, x, xp, x64) -> None:
+    """Phase 6's second yardstick of a float32 kernel solve ``x`` and its
+    plain version's ``xp``: their per-lane max|dx|/max|x| from the plain
+    version in float64 on the same stamps, ``x64``; the kernel's median
+    and 95th percentile within ``TRUTH_RATIO`` times the plain version's."""
+    truth = {}
+    for who, got in (('kernel', x), ('plain', xp)):
+        r = ((got.double() - x64).abs().amax(1)
+             / x64.abs().amax(1)).cpu().numpy()
+        truth[who] = (float(np.median(r)), float(np.percentile(r, 95)),
+                      float(r.max()))
+    print(f'{what} float32 vs float64 truth, per-lane max|dx|/max|x| '
+          f'median / p95 / max: kernel ' + ' / '.join(
+              f'{v:.3e}' for v in truth['kernel']) + ', plain '
+          + ' / '.join(f'{v:.3e}' for v in truth['plain']))
+    for i, stat in ((0, 'median'), (1, 'p95')):
+        check(truth['kernel'][i] <= TRUTH_RATIO * truth['plain'][i],
+              f'{what}: float32 {stat} distance to float64 truth within '
+              f'{TRUTH_RATIO}x the plain version\'s')
+
+
 def phase_k2_vs_plain(torch) -> None:
     """Phase 6: the whole-solver kernel against its plain version on the
-    same CUDA tensors, B=256 main-path stamps, bench configuration.
-
-    float64: equal per-lane iterations and x to 1e-7 relative. float32,
-    stop rule 3: equal medians, mean |diters| <= 1 (see phase 5). float32,
-    stop rule 1 at max_iter=20, where every lane runs 20 iterations:
-    per-lane max|dx|/max|x| within ``K2_F32_REL``, and both float32
-    results against the plain version in float64: the kernel's median and
-    95th percentile within ``TRUTH_RATIO`` times the plain version's."""
+    same CUDA tensors, B=256 main-path stamps, bench configuration, with
+    ``k2_against_plain``'s limits; float32 stop rule 1 at max_iter=20,
+    where every lane runs 20 iterations, also against the plain version in
+    float64: the kernel's median and 95th percentile within
+    ``TRUTH_RATIO`` times the plain version's."""
     from tpu_sgp_torch import SGPConfig
     from tpu_sgp_torch.experimental.pallas_batch import stamp_rows
     from tpu_sgp_torch.kernels.stamp_solver import solve_rows, solve_rows_plain
     inputs = main_path_inputs(K2_B)
     fluxes = inputs[3]
-    for label, over in (('float64 stop 3', dict(dtype='float64')),
-                        ('float32 stop 3', {}),
-                        ('float32 stop 1 max_iter=20',
-                         dict(stop_criterion=1, max_iter=20))):
+    for label, over in K2_CASES:
         cfg = SGPConfig(**{**BENCH_CFG, **over})
         args = stamp_rows(*inputs, SAT_LEVEL, cfg.torch_dtype, 'cuda')
         x, it = solve_rows(*args, cfg)
         xp, ip = solve_rows_plain(*args, cfg)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(x).all()), f'{label}: finite kernel x')
-        flux = float(np.abs(x.double().sum(1).cpu().numpy() / fluxes
-                            - 1).max())
-        check(flux <= FLUX_RTOL[cfg.dtype], f'{label}: kernel conserves flux')
-        it, ip = it.cpu().numpy().astype(int), ip.cpu().numpy().astype(int)
-        diff = np.abs(it - ip)
-        rel = ((x - xp).abs().amax(1) / xp.abs().amax(1)).cpu().numpy()
-        print(f'K2 kernel vs plain B={K2_B} {label}: iters median '
-              f'{np.median(it):g} vs {np.median(ip):g}, max {it.max()} vs '
-              f'{ip.max()}, mean |diters|={diff.mean():.4f}, per-lane '
-              f'max|dx|/max|x| median {np.median(rel):.3e} p95 '
-              f'{np.percentile(rel, 95):.3e} max {rel.max():.3e}, flux rel '
-              f'err={flux:.3e}')
-        if cfg.dtype == 'float64':
-            check(diff.max() == 0, 'K2 float64: equal per-lane iterations')
-            check(rel.max() <= 1e-7, 'K2 float64: x agrees to 1e-7')
-        elif cfg.stop_criterion == 3:
-            check(np.median(it) == np.median(ip),
-                  'K2 float32: median iterations equal')
-            check(diff.mean() <= 1.0, 'K2 float32: mean |diters| <= 1')
-        else:
-            check(np.median(rel) <= K2_F32_REL['median']
-                  and np.percentile(rel, 95) <= K2_F32_REL['p95']
-                  and rel.max() <= K2_F32_REL['max'],
-                  f'K2 float32 stop rule 1: x within {K2_F32_REL}')
+        k2_against_plain(torch, f'K2 kernel vs plain B={K2_B} {label}', cfg,
+                         x, it, xp, ip, fluxes)
+        if cfg.stop_criterion == 1:
             # both float32 results against float64 truth (the plain version
             # in float64 on the same stamps): the kernel's sum order may
             # stray from the truth no further than the plain version's
@@ -629,22 +716,8 @@ def phase_k2_vs_plain(torch) -> None:
             x64, _ = solve_rows_plain(*stamp_rows(*inputs, SAT_LEVEL,
                                                   torch.float64, 'cuda'),
                                       cfg64)
-            truth = {}
-            for who, got in (('kernel', x), ('plain', xp)):
-                r = ((got.double() - x64).abs().amax(1)
-                     / x64.abs().amax(1)).cpu().numpy()
-                truth[who] = (float(np.median(r)),
-                              float(np.percentile(r, 95)), float(r.max()))
-            print(f'K2 float32 vs float64 truth B={K2_B} stop 1 '
-                  f'max_iter=20, per-lane max|dx|/max|x| median / p95 / '
-                  f'max: kernel ' + ' / '.join(f'{v:.3e}' for v in
-                                              truth['kernel'])
-                  + ', plain ' + ' / '.join(f'{v:.3e}' for v in
-                                            truth['plain']))
-            for i, what in ((0, 'median'), (1, 'p95')):
-                check(truth['kernel'][i] <= TRUTH_RATIO * truth['plain'][i],
-                      f'K2 float32 {what} distance to float64 truth within '
-                      f'{TRUTH_RATIO}x the plain version\'s')
+            k2_against_truth(torch, f'K2 B={K2_B} stop 1 max_iter=20', x,
+                             xp, x64)
 
 
 def k2_full_width_agree(torch, x, it, xp, ip, what: str) -> float:
@@ -684,15 +757,15 @@ def phase_k2_full(torch, card: str, unfused_wall: float,
     """Phase 7: ``solve_stamps_pallas`` at full width on phase 4's inputs,
     after one warm-up call; the wall is the median of three calls, each
     ending in a synchronize, with the kernel's launches counted from 0 in
-    each. Then the kernel alone and its plain version, CUDA events, on the
+    each, every one on the TcPatch route. Then the kernel alone and its plain version, CUDA events, on the
     same operands; their last results are held against each other with
     phase 6's stop-rule-3 limits on the iterations and ``K2_FULL_REL``
     and ``K2_FULL_REL_SAME`` on x, and give the kernel's max_abs_err."""
     from tpu_sgp_torch import SGPConfig
     from tpu_sgp_torch.experimental.pallas_batch import (solve_stamps_pallas,
                                                          stamp_rows)
-    from tpu_sgp_torch.kernels.stamp_solver import solve_rows, solve_rows_plain
-    from tpu_sgp_torch.projection.flux_projection import bracket_bits
+    from tpu_sgp_torch.kernels.stamp_solver import (device_plan, solve_rows,
+                                                    solve_rows_plain)
     inputs = main_path_inputs(MAIN_B)
     stamps, psf, bkgs, fluxes = inputs
     cfg = SGPConfig(**BENCH_CFG)
@@ -706,10 +779,14 @@ def phase_k2_full(torch, card: str, unfused_wall: float,
     walls, counts = [], []
     for _ in range(3):
         solve_rows.launches = 0
+        solve_rows.routes.clear()
         t0 = time.perf_counter()
         x, iters = run()
         walls.append(time.perf_counter() - t0)
         counts.append(solve_rows.launches)
+        check(dict(solve_rows.routes) == {'TcPatch': 1},
+              f'the main path\'s stamps take the TcPatch route: '
+              f'{dict(solve_rows.routes)}')
     check(counts == [1, 1, 1], 'one whole-solver launch per call')
     check(x.is_cuda and tuple(x.shape) == stamps.shape,
           'K2 x lies on the card in the stamps\' shape')
@@ -743,18 +820,9 @@ def phase_k2_full(torch, card: str, unfused_wall: float,
     max_abs = k2_full_width_agree(torch, xk, ik, xp, ip,
                                   'K2 kernel vs plain')
     ik = ik.cpu().numpy().astype(int)
-    # this run's work: each lane applies the 961-tap operator 3 + 2 * iters
-    # times (N^2 multiply-adds of 2 operations each) and projects 1 + iters
-    # times (per bisection step and pixel an add, a divide, a max, a min and
-    # the sum's add, and about 8 operations around the bisection); read the
-    # stamps, backgrounds, fluxes, levels and taps once, write x and iters.
-    # Two bounds: everything on the FP32 pipes, and the kernel's own split,
-    # the operator as TF32_PASSES TF32 products on the tensor cores and the
-    # rest on the FP32 pipes
+    # two bounds: everything on the FP32 pipes, and the kernel's own split
     n = N_PIX
-    op_flop = float(((3 + 2 * it) * 2 * n * n).sum())
-    rest = float(((1 + it) * (bracket_bits(torch.float32) * 5 + 8) * n).sum())
-    moved = (3 * MAIN_B * n + 3 * MAIN_B + n) * 4
+    op_flop, rest, moved = k2_work(torch, it, n, torch.float32)
     pipes = bound(moved, op_flop + rest)
     k2_bound = bound(moved, rest, TF32_PASSES * op_flop)
     print(f'K2 kernel time ({MAIN_B}, {n}) float32: kernel {ms:.4f} ms, '
@@ -763,9 +831,32 @@ def phase_k2_full(torch, card: str, unfused_wall: float,
           f'TFLOP as {TF32_PASSES} TF32 products on the tensor cores, '
           f'{rest / 1e12:.4f} TFLOP on the FP32 pipes), '
           f'{pipes["bound_ms"]:.4f} ms all on the FP32 pipes')
+    block = route_block(device_plan(31, 31, torch.float32,
+                                    torch.device('cuda')), 31, 31)
+    route = dict(route='TcPatch', shape=[31, 31], dtype='float32',
+                 launches=counts[0], **block, ms=ms,
+                 ms_per_stamp_iteration=ms / float(it.sum()),
+                 plain_ms=plain_ms, max_abs_err=max_abs, **k2_bound)
     return dict(launches=counts[0], max_abs_err=max_abs, ms=ms,
-                plain_ms=plain_ms, **k2_bound,
-                library_ms=None), int((3 + 2 * ik).sum())
+                plain_ms=plain_ms, **k2_bound, library_ms=None,
+                routes=[route]), int((3 + 2 * ik).sum())
+
+
+def k2_work(torch, it, n: int, dtype) -> tuple:
+    """K2's work on (B, n) stamps whose lanes ran ``it`` iterations, as
+    (operator FLOP, other FLOP, bytes): each lane applies the n-tap
+    operator 3 + 2 * iters times (n^2 multiply-adds of 2 operations each)
+    and projects 1 + iters times (per bisection step and pixel an add, a
+    divide, a max, a min and the sum's add, and about 8 operations around
+    the bisection); it reads the stamps, backgrounds, fluxes, levels and
+    taps once and writes x and the int32 iterations."""
+    from tpu_sgp_torch.projection.flux_projection import bracket_bits
+    it = np.asarray(it, dtype=np.float64)
+    size = torch.finfo(dtype).bits // 8
+    op_flop = float(((3 + 2 * it) * 2 * n * n).sum())
+    rest = float(((1 + it) * (bracket_bits(dtype) * 5 + 8) * n).sum())
+    rows = it.size
+    return op_flop, rest, (3 * rows * n + 2 * rows + n) * size + 4 * rows
 
 
 def phase_operator(torch, k2_ms: float, applications: int) -> None:
@@ -775,9 +866,10 @@ def phase_operator(torch, k2_ms: float, applications: int) -> None:
     (float32 on the tensor cores in three TF32 products, float64 on the
     FP64 pipes; the sums' order differs). The tensor cores' matrix products
     (``HMMA``) in each instantiation of the built library: some in every
-    float32 one, none in a float64 one. Then the operator's time at phase
-    7's own count of applications (``3 + 2 * iters`` a lane, summed), as a
-    share of the kernel's ``k2_ms``, beside the plain twin's time and one
+    TcPatch one, none in a Patch one (float32 or float64). Then the
+    operator's time at phase 7's own count of applications (``3 + 2 *
+    iters`` a lane, summed), as a share of the kernel's ``k2_ms``, beside
+    the plain twin's time and one
     dense float32 GEMM a product (``torch.matmul``, cuBLAS) as the
     library's yardstick for the same count."""
     from tpu_sgp_torch.experimental.pallas_batch import stamp_rows
@@ -800,12 +892,15 @@ def phase_operator(torch, k2_ms: float, applications: int) -> None:
     hmma = sass_count(_build.library_path('stamp_solver'), 'HMMA')
     print('K2 HMMA instructions (cuobjdump -sass): ' + ', '.join(
         f'{k} {v}' for k, v in hmma.items()))
+    # the last template argument is the design: 1 TcPatch, 0 Patch
     for kernel in ('solve_stamps_kernel', 'apply_operator_kernel'):
-        for t, on in (('f', True), ('d', False)):
+        for t, design, on in (('f', 1, True), ('f', 0, False),
+                              ('d', 0, False)):
             counts = [v for k, v in hmma.items()
-                      if k.startswith(f'{kernel}<{t},')]
+                      if k.startswith(f'{kernel}<{t},')
+                      and k.endswith(f',{design}>')]
             check(bool(counts) and all((v > 0) == on for v in counts),
-                  f'{kernel}<{t}>: tensor-core products '
+                  f'{kernel}<{t},...,{design}>: tensor-core products '
                   f'{"in every" if on else "in no"} instantiation')
     gn, _, _, _, taps = stamp_rows(*inputs, SAT_LEVEL, torch.float32, 'cuda')
     gn = gn / gn.amax(1, keepdim=True)
@@ -834,6 +929,164 @@ def phase_operator(torch, k2_ms: float, applications: int) -> None:
           f'{100 * ms / k2_ms:.1f} % of the kernel\'s {k2_ms:.4f} ms; the '
           f'rest {k2_ms - ms:.4f} ms; plain {plain_ms:.4f} ms; cuBLAS '
           f'float32 GEMM (torch.matmul) {library_ms:.4f} ms')
+
+
+def route_block(plan, h: int, w: int) -> dict:
+    """The card's own account of a K2 route's block (``card_block``:
+    threads, dynamic shared bytes, resident blocks an SM and the
+    instantiation), checked against the plan's threads and bytes."""
+    from tpu_sgp_torch.kernels.stamp_solver import card_block
+    bh, bw = (w, h) if plan.transposed else (h, w)
+    block = card_block(plan.design, bh, bw, plan.dtype)
+    check(block is not None, f'{plan.route} on {h}x{w}: the card takes the '
+          f'block')
+    check((block['threads'], block['smem']) == (plan.threads, plan.smem),
+          f'{plan.route} on {h}x{w}: the plan\'s block ({plan.threads} '
+          f'threads, {plan.smem} B) is the card\'s ({block["threads"]}, '
+          f'{block["smem"]} B)')
+    return block
+
+
+def k2_plan_sweep(torch) -> None:
+    """Every (H, W) with H*W <= 4096 and each design (float32 TcPatch and
+    Patch, float64 Patch): the plan's block (``route_plan`` under the
+    card's shared memory) has the threads and bytes of the C entries' own
+    (``card_block``), or both refuse it."""
+    from tpu_sgp_torch.kernels.stamp_solver import (MAX_PIXELS, _smem_limit,
+                                                    card_block, route_plan)
+    t0 = time.perf_counter()
+    limit = _smem_limit(torch.cuda.current_device())
+    kinds = (('TcPatch', torch.float32), ('Patch', torch.float32),
+             ('Patch', torch.float64))
+    blocks = refused = 0
+    for h in range(1, MAX_PIXELS + 1):
+        for w in range(1, MAX_PIXELS // h + 1):
+            for design, dtype in kinds:
+                plan = route_plan(design, False, h, w, dtype, limit)[0]
+                card = card_block(design, h, w, dtype)
+                check((plan is None) == (card is None) and (
+                    plan is None or (plan.threads, plan.smem)
+                    == (card['threads'], card['smem'])),
+                    f'{design} {dtype} {h}x{w}: the plan\'s block is the '
+                    f'card\'s')
+                blocks += 1
+                refused += card is None
+    print(f'K2 shapes plan vs card: {blocks} blocks of {len(kinds)} designs '
+          f'on every shape to {MAX_PIXELS} pixels agree ({refused} refused '
+          f'by both, {limit} B of shared memory a block), '
+          f'{time.perf_counter() - t0:.2f} s')
+
+
+def phase_k2_shapes(torch, card: str) -> list:
+    """Phase 42: K2 on every route of its plan past the main path's, B=64
+    stamps of one shape each (``K2_ROUTES``). The route's operator alone,
+    (AT A) x, against the dense product (``OPERATOR_TOL``, as phase 8).
+    Then ``solve_stamps_pallas`` with the launches counted from 0 by
+    route: each call one launch on the planned route, its result against
+    the plain version on the same CUDA tensors with ``k2_against_plain``'s
+    limits (float64 stop rule 3; float32 stop rule 3 and stop rule 1 at
+    max_iter=20, with ``K2_ROUTE_LIMITS`` at its shapes), and float32 stop
+    rule 1 against the float64 truth as in phase 6. float64 4x1024, which
+    fits no block, raises ``ValueError`` before any launch. Each route's
+    kernel timed (CUDA events, stop rule 3) beside its plain version and
+    its bound at the card's best rate for the type: the operator as
+    TF32_PASSES TF32 products in float32, on the FP64 tensor cores in
+    float64, the rest on the pipes (the operator all on the pipes is
+    printed beside it). Last ``k2_plan_sweep``. Returns the routes for the
+    kernels line."""
+    from tpu_sgp_torch import SGPConfig
+    from tpu_sgp_torch.experimental.pallas_batch import (solve_stamps_pallas,
+                                                         stamp_rows)
+    from tpu_sgp_torch.kernels.stamp_solver import (apply_operator,
+                                                    apply_operator_plain,
+                                                    solve_rows,
+                                                    device_plan,
+                                                    solve_rows_plain)
+    from tpu_sgp_torch.simulate import shaped_star_stamps
+    b = K2_ROUTE_B
+    cfg64 = SGPConfig(**{**BENCH_CFG, 'dtype': 'float64'})
+    solve_rows.launches = 0
+    try:
+        solve_stamps_pallas(*shaped_star_stamps(b, 4, 1024, 41), SAT_LEVEL,
+                            cfg64)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and solve_rows.launches == 0,
+          'float64 4x1024 raises ValueError before any launch')
+    print(f'K2 shapes float64 4x1024: ValueError before any launch: '
+          f'{refused}')
+    routes = []
+    for seed, (name, (h, w)) in enumerate(K2_ROUTES, 42):
+        dtype = getattr(torch, name)
+        plan = device_plan(h, w, dtype, torch.device('cuda'))
+        block = route_block(plan, h, w)
+        inputs = shaped_star_stamps(b, h, w, seed)
+        args = stamp_rows(*inputs, SAT_LEVEL, dtype, 'cuda')
+        gn, taps = args[0], args[4]
+        op = float((apply_operator(gn, taps, 1)
+                    - apply_operator_plain(gn, taps, 1)).abs().max()
+                   / gn.abs().max())
+        print(f'K2 shapes operator {plan.route} {h}x{w} (AT A) x: '
+              f'max|dy|/max|x|={op:.3e} (limit {OPERATOR_TOL[name]:.0e})')
+        check(op <= OPERATOR_TOL[name], f'{plan.route} on {h}x{w}: the '
+              f'operator agrees with the dense product')
+        max_abs, launches = 0.0, 0
+        for label, over in K2_CASES:
+            if over.get('dtype', 'float32') != name:
+                continue
+            cfg = SGPConfig(**{**BENCH_CFG, **over})
+            solve_rows.launches = 0
+            solve_rows.routes.clear()
+            x, it = solve_stamps_pallas(*inputs, SAT_LEVEL, cfg)
+            torch.cuda.synchronize()
+            counted = dict(solve_rows.routes)
+            check(counted == {plan.route: 1},
+                  f'{h}x{w} {name}: one launch on {plan.route}: {counted}')
+            launches += counted[plan.route]
+            xp, ip = solve_rows_plain(*args, cfg)
+            torch.cuda.synchronize()
+            what = f'K2 shapes {plan.route} B={b} {h}x{w} {label}'
+            x = x.reshape(b, -1)
+            max_abs = max(max_abs, k2_against_plain(
+                torch, what, cfg, x, it, xp, ip, inputs[3],
+                K2_ROUTE_LIMITS.get((h, w))))
+            if name == 'float32' and cfg.stop_criterion == 1:
+                truth = SGPConfig(**{**BENCH_CFG, **over, 'dtype': 'float64'})
+                x64, _ = solve_rows_plain(*stamp_rows(
+                    *inputs, SAT_LEVEL, torch.float64, 'cuda'), truth)
+                k2_against_truth(torch, what, x, xp, x64)
+            if cfg.stop_criterion == 3:
+                cfg3, iters = cfg, it.cpu().numpy()
+        ms = time_ms(torch, lambda: solve_rows(*args, cfg3), reps=5)
+        plain_ms = time_ms(torch, lambda: solve_rows_plain(*args, cfg3),
+                           reps=1)
+        op_flop, rest, moved = k2_work(torch, iters, h * w, dtype)
+        if name == 'float32':
+            k2_bound = bound(moved, rest, TF32_PASSES * op_flop)
+            pipes = bound(moved, op_flop + rest)
+        else:
+            k2_bound = bound(moved, rest, op_flop, ops_rate=F64_FLOP_S,
+                             tc_rate=F64_TC_FLOP_S)
+            pipes = bound(moved, op_flop + rest, ops_rate=F64_FLOP_S)
+        per_iter = ms / float(iters.sum())
+        print(f'K2 shapes route {plan.route} {h}x{w} {name} B={b}: '
+              f'{block["threads"]} threads, {block["smem"]} B shared, '
+              f'{block["blocks_per_sm"]} blocks/SM ({block["instance"]}), '
+              f'kernel {ms:.4f} ms, {per_iter * 1e3:.4f} us a '
+              f'stamp-iteration ({int(iters.sum())} stamp-iterations), '
+              f'plain {plain_ms:.4f} ms, bound {k2_bound["bound_ms"]:.4f} '
+              f'ms ({k2_bound["bound_by"]}, the operator on the '
+              f'{"TF32" if name == "float32" else "FP64"} tensor cores), '
+              f'{pipes["bound_ms"]:.4f} ms all on the '
+              f'{"FP32" if name == "float32" else "FP64"} pipes [{card}]')
+        routes.append(dict(route=plan.route, shape=[h, w], dtype=name,
+                           launches=launches, **block, ms=ms,
+                           ms_per_stamp_iteration=per_iter,
+                           plain_ms=plain_ms, max_abs_err=max_abs,
+                           **k2_bound))
+    k2_plan_sweep(torch)
+    return routes
 
 
 def count_launches(torch, fn) -> tuple:
@@ -3671,7 +3924,8 @@ def main() -> int:
                               (40, lambda: phase_soak(card)
                                if first == 40 else None),
                               (41, lambda: phase_distributed_demo(
-                                  card, ran_worlds()))):
+                                  card, ran_worlds())),
+                              (42, lambda: phase_k2_shapes(torch, card))):
             if number >= first:
                 phase()
         print(f'partial run from phase {first}: no result')
@@ -3733,6 +3987,10 @@ def main() -> int:
     phase_scan_compaction(torch, card)
     phase_determinism(card, beside=lambda: phase_soak(card))
     phase_distributed_demo(card, worlds)
+
+    # 42
+    shapes = time.perf_counter()
+    k2['routes'] += phase_k2_shapes(torch, card)
     done = time.perf_counter()
     in_worlds = sum(float(w[0].get('examples/demo_wall', 0.0))
                     + float(w[0].get('examples/halo_wall', 0.0))
@@ -3742,8 +4000,9 @@ def main() -> int:
           f'guard (29-30) {meshes - chain:.1f} s, the multi-rank worlds '
           f'(31-33, with the examples of 37 and 41) '
           f'{examples - meshes:.1f} s, the examples (34-41) '
-          f'{done - examples:.1f} s and {in_worlds:.1f} s in the worlds, '
-          f'all {done - started:.1f} s')
+          f'{shapes - examples:.1f} s and {in_worlds:.1f} s in the worlds, '
+          f'K2\'s shapes (42) {done - shapes:.1f} s, all '
+          f'{done - started:.1f} s')
 
     k1 = {'route': 'cuda', 'source': 'tpu_sgp_torch/csrc/flux_projection.cu',
           'replaces': 'tpu_sgp/experimental/pallas_projection.py:40'}

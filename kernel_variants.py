@@ -12,9 +12,12 @@ whole and its operator alone at phase 7's count of applications. The variants ch
 speed, not arithmetic: each result must equal that of the kernel as built,
 or the script fails. Two compare otherwise: on K1's long row the variants
 sum in another order, so x is held to 1e-5 of max|x| there; K2 with its
-float32 operator on the FP32 pipes (the earlier design) sums in another
-order too, so its operator is held to ``chip_smoke.OPERATOR_TOL`` and its
-solve to chip_smoke.py phase 7's limits against the kernel as built. K1's
+float32 operator on the FP32 pipes (the earlier design, Patch<float>: the
+library as built, on the route its launch plan takes for the shapes that
+the tensor cores' blocks do not fit, named here for the main path's
+stamps) sums in another order too, so its operator is held to
+``chip_smoke.OPERATOR_TOL`` and its solve to chip_smoke.py phase 7's limits
+against the kernel as built. K1's
 long row, one 410x410 frame, is also timed on the one-block-a-row path
 beside the grid path. Prints the card, the ptxas line of the main path's
 instantiations and the tensor cores' instructions (HMMA) in them for every
@@ -31,9 +34,13 @@ import chip_smoke as cs
 
 CSRC = Path(__file__).resolve().parent / 'tpu_sgp_torch' / 'csrc'
 OUT = Path(__file__).resolve().parent / 'build' / 'kernel_variants'
-# K2's float32 operator on the FP32 pipes: its results differ from the
-# tensor cores' within chip_smoke.py's limits, not bit for bit
+# K2's float32 operator on the FP32 pipes, the library as built on the
+# plan's Patch<float> route: its results differ from the tensor cores'
+# within chip_smoke.py's limits, not bit for bit
 FP32_PIPES = 'FP32-pipe operator (the earlier float32 design)'
+# variants that run the library as built on another route: (design,
+# transposed) of kernels/stamp_solver.py:route_plan at the main path's shape
+ROUTED = {('stamp_solver', FP32_PIPES): ('Patch', False)}
 # (kernel, variant) -> edits of the source, (old, new) each
 VARIANTS = {
     ('stamp_solver', 'as built'): [],
@@ -45,9 +52,6 @@ VARIANTS = {
         ('sizeof(T) == 4 && MAXT == 128 ? 4 : 1', '1')],
     ('stamp_solver', 'tap row length read at run time'): [
         ('if (threads <= 128 && lay.pitch == 32)', 'if (false)')],
-    ('stamp_solver', FP32_PIPES): [
-        ('struct Design<float> : TensorCoreDesign {};',
-         'struct Design<float> : PipeDesign<float> {};')],
     # lane (g, t) takes reduction columns 2t and 2t + 1 of a k-step, so its
     # two A values of a row are one 8-byte load (rows 8 banks apart)
     ('stamp_solver', 'k-step columns paired, A by 8-byte loads'): [
@@ -135,6 +139,8 @@ def main() -> int:
 
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         built = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
+    for key in ROUTED:
+        built[key] = built[(key[0], 'as built')]
     for (kernel, variant), (_, report) in built.items():
         print(f'{kernel} "{variant}": ptxas {report}')
 
@@ -152,14 +158,21 @@ def main() -> int:
     wrappers = {'stamp_solver': stamp_solver, 'flux_projection':
                 flux_projection}
 
+    planned = stamp_solver.stamp_solver_plan
+
     def use(key):
         """Point the port's wrapper of this kernel at the variant's
-        library."""
+        library, and K2's launch plan at the variant's route if it names
+        one."""
         kernel = key[0]
         _build._LOADED[kernel] = ctypes.CDLL(str(built[key][0]))
         wrappers[kernel]._entry.cache_clear()
         if kernel == 'stamp_solver':
             stamp_solver._operator_entry.cache_clear()
+            stamp_solver._route_entry.cache_clear()
+            stamp_solver.stamp_solver_plan = planned if key not in ROUTED \
+                else lambda h, w, dtype, smem_limit: stamp_solver.route_plan(
+                    *ROUTED[key], h, w, dtype, smem_limit)[0]
         else:
             flux_projection.launch_plan.cache_clear()
 
@@ -202,8 +215,8 @@ def main() -> int:
         return True
 
     first = {}
-    order = list(VARIANTS) + list(reversed(VARIANTS))
-    for key in order:
+    keys = list(VARIANTS) + list(ROUTED)
+    for key in keys + keys[::-1]:
         use(key)
         for shape, n, fn in cases(key[0]):
             out = {}

@@ -20,8 +20,9 @@ from tpu_sgp_torch.experimental.pallas_batch import (solve_stamps_pallas,
                                                      stamp_rows)
 from tpu_sgp_torch.kernels.stamp_solver import (apply_operator,
                                                 apply_operator_plain,
-                                                solve_rows, solve_rows_plain)
-from tpu_sgp_torch.simulate import synthetic_star_stamps
+                                                solve_rows, solve_rows_plain,
+                                                stamp_solver_plan)
+from tpu_sgp_torch.simulate import shaped_star_stamps, synthetic_star_stamps
 
 SAT = 65000.0
 # the scope of the JAX kernel (pallas_batch.py:325-328) with stop rule 3
@@ -221,18 +222,28 @@ def test_operator_plain_matches_jax_operator(h, w):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-14)
 
 
+# one stamp shape a route the plan adds to the square stamps' (TcPatch in
+# float32, Patch<double> in float64): TcPatch transposed, Patch<float>,
+# Patch<float> transposed, Patch<double> transposed
+ROUTE_SHAPES = [('float32', (240, 17)), ('float32', (4, 1024)),
+                ('float32', (2048, 2)), ('float64', (240, 17))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.float64, 1e-12)])
 @pytest.mark.parametrize('h,w', [(7, 7), (16, 16), (5, 9), (31, 31),
-                                 (40, 40), (64, 64), (63, 65)])
+                                 (40, 40), (64, 64), (63, 65), (240, 17),
+                                 (4, 1024), (2048, 2)])
 def test_operator_matches_dense_product_on_card(dtype, tol, h, w):
     """The kernel's operator alone, (AT A) x, against the dense circulant
     product: only the order of the sums differs (float32 on the tensor
     cores in three TF32 products). 5x9 and 7x7 leave part of a 2x4 patch
     and of a 16x16 tile outside the stamp; 40x40 and 64x64 take 256 and
     512 threads a block in float64, 288 and 512 in float32; 63x65, 4095
-    pixels, pads its 16x16 tiles on both sides."""
+    pixels, pads its 16x16 tiles on both sides; 240x17, 4x1024 and 2048x2
+    take the plan's other routes (float64 4x1024 and 2048x2 fit no block
+    and raise before the launch)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -242,6 +253,10 @@ def test_operator_matches_dense_product_on_card(dtype, tol, h, w):
     x = torch.as_tensor(rng.random((5, h * w)), dtype=dtype, device='cuda')
     taps = torch.fft.fftshift(torch.as_tensor(psf, dtype=dtype,
                                               device='cuda')).contiguous()
+    if dtype == torch.float64 and (h, w) in ((4, 1024), (2048, 2)):
+        with pytest.raises(ValueError, match='fit no block'):
+            apply_operator(x, taps, 1)
+        return
     got = apply_operator(x, taps, 1)
     want = apply_operator_plain(x, taps, 1)
     torch.cuda.synchronize()
@@ -256,21 +271,29 @@ def test_operator_matches_dense_product_on_card(dtype, tol, h, w):
     ('float64', 7, 16), ('float32', 7, 16),
     ('float64', 16, 16), ('float32', 16, 16),
     # 256 and 512 threads a block, above 48 KB of dynamic shared memory
-    ('float64', 40, 8), ('float64', 64, 4)])
+    ('float64', 40, 8), ('float64', 64, 4)] + [
+    pytest.param(dtype, shape, 8, id=f'{dtype}-{shape[0]}x{shape[1]}-8')
+    for dtype, shape in ROUTE_SHAPES])
 def test_kernel_matches_plain_on_card(dtype, size, b):
-    """One launch solves the batch; float64 lane for lane, float32 with
-    stop rule 1 at 20 iterations lane by lane."""
+    """One launch solves the batch, on the route the plan picks; float64
+    lane for lane, float32 with stop rule 1 at 20 iterations lane by
+    lane."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')
     torch.backends.cuda.matmul.allow_tf32 = False
-    stamps, psf, bkgs, fluxes = _stamps(b, size, seed=7)
+    if isinstance(size, tuple):
+        stamps, psf, bkgs, fluxes = shaped_star_stamps(b, *size, seed=7)
+    else:
+        stamps, psf, bkgs, fluxes = _stamps(b, size, seed=7)
     kw = dict(SCOPE, dtype=dtype, max_iter=100)
     if dtype == 'float32':
         kw.update(stop_criterion=1, max_iter=20)
     cfg = tsgp.SGPConfig(**kw)
-    before = solve_rows.launches
+    route = stamp_solver_plan(*psf.shape, cfg.torch_dtype).route
+    before, on_route = solve_rows.launches, solve_rows.routes[route]
     x, it = solve_stamps_pallas(stamps, psf, bkgs, fluxes, SAT, cfg)
     assert x.is_cuda and solve_rows.launches == before + 1
+    assert solve_rows.routes[route] == on_route + 1
     rows = stamp_rows(stamps, psf, bkgs, fluxes, SAT, cfg.torch_dtype,
                       torch.device('cuda'))
     xp, ip = solve_rows_plain(*rows, cfg)
@@ -283,7 +306,8 @@ def test_kernel_matches_plain_on_card(dtype, size, b):
         assert rel.max() <= 1e-7, readings
     else:
         # chip_smoke.py's median and p95 limits for this comparison (its
-        # phase 6), and its earlier max, which this batch keeps
+        # phase 6), and its earlier max, which this batch keeps on every
+        # route
         assert (np.median(rel) <= 2e-4 and np.percentile(rel, 95) <= 2e-3
                 and rel.max() <= 5e-3), readings
 
@@ -305,11 +329,27 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
                    taps.half(), cfg)
     with pytest.raises(ValueError, match='shape'):
         solve_rows(gn, bkg, flux[:3], sat, taps, cfg)
-    # float32's 16x16 tiles: 4 x 1024 pixels pad to 64 tiles, 2048 threads
-    narrow = torch.ones(4, 4 * 1024, dtype=torch.float32, device='cuda')
-    with pytest.raises(RuntimeError, match='CUDA error 1'):
-        solve_rows(narrow, narrow, flux, sat,
-                   torch.ones(4, 1024, device='cuda') / 4096, cfg)
+    # 4 x 1024: float32's 16x16 tiles pad it to 64 tiles, 2048 threads, in
+    # either orientation, so it takes Patch<float> on the FP32 pipes and
+    # agrees with the plain version; float64's Patch needs more shared
+    # memory than a block has in either orientation, so it raises before
+    # the launch
+    cfg1 = tsgp.SGPConfig(**dict(SCOPE, stop_criterion=1, max_iter=20))
+    rows = stamp_rows(*shaped_star_stamps(4, 4, 1024, seed=5), SAT,
+                      torch.float32, torch.device('cuda'))
+    before = solve_rows.launches
+    x, it = solve_rows(*rows, cfg1)
+    xp, ip = solve_rows_plain(*rows, cfg1)
+    assert solve_rows.launches == before + 1
+    assert solve_rows.routes['Patch<float>'] >= 1
+    assert torch.equal(it, ip)
+    # within test_kernel_matches_plain_on_card's max
+    rel = _lane_rel(x.cpu().numpy(), xp.cpu().numpy())
+    assert rel.max() <= 5e-3, rel
+    with pytest.raises(ValueError, match='4x1024'):
+        solve_rows(*(t.double() for t in rows),
+                   tsgp.SGPConfig(**dict(SCOPE, dtype='float64')))
+    assert solve_rows.launches == before + 1
 
 
 def f32_spread_report(seeds=(3, 4, 5, 6), repeats=2):

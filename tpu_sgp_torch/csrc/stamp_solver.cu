@@ -61,9 +61,18 @@
 // doubled in rows and columns (every index taken mod H, W) in shared
 // memory, so no index needs a `mod`; full-precision FMAs.
 //
-// What the FP64 design does about the FLOP count (float32's earlier
-// design, which kernel_variants.py still builds for float32 to time the
-// two side by side):
+// Routes. The design is a template argument of both kernels, and the
+// float32 library carries both: the wrapper's plan (kernels/
+// stamp_solver.py:stamp_solver_plan) picks one from the stamp's shape
+// before the launch, TcPatch, else Patch<float> on the FP32 pipes, each on
+// the stamp or else on its transpose (a circular convolution commutes with
+// transposing the image and the taps, and every sum of the solve runs over
+// all pixels), whichever block fits 1024 threads and the card's shared
+// memory first; float64 has Patch alone, in either orientation. The
+// entries check the block again and return an error rather than launch one
+// that cannot run.
+//
+// What Patch does about the FLOP count:
 // - Register tiling. A thread owns a 2 x 4 patch of outputs (rows 2p and
 //   2p + 1, columns 4g .. 4g + 3), and the solver's per-pixel state lives
 //   in the same registers, so the operator's outputs land where they are
@@ -521,29 +530,33 @@ struct TcPatch {
   }
 };
 
-// The operator of each element type: float32 on the tensor cores, float64
-// on the FP64 pipes. kernel_variants.py builds a copy with float32 on the
-// FP32 pipes (Patch<float>), to time the two designs side by side.
-template <typename T>
-struct PipeDesign {
+// The operator designs, the last template argument of both kernels (and of
+// their names in ptxas's report): float32 takes either, float64 Patch.
+constexpr int kPipes = 0;        // Patch, on the FP32 or FP64 pipes
+constexpr int kTensorCores = 1;  // TcPatch, float32 on the tensor cores
+
+template <typename T, int DESIGN>
+struct Design {
+  static_assert(DESIGN == kPipes, "float64 has the FP64-pipe design only");
   using Shape = Layout;
   template <int PITCH>
   using Op = Patch<T, PITCH>;
 };
-struct TensorCoreDesign {
+template <>
+struct Design<float, kTensorCores> {
   using Shape = TcLayout;
   template <int PITCH>
   using Op = TcPatch<PITCH>;
 };
+
+// the solver's static shared memory: BlockReduce's red[2][kMaxVals][kMaxWarps]
 template <typename T>
-struct Design : PipeDesign<T> {};
-template <>
-struct Design<float> : TensorCoreDesign {};
+constexpr size_t kStaticSmem = sizeof(T) * 2 * kMaxVals * kMaxWarps;
 
 // At the main path's 128 threads a float32 block is held to 128 registers,
 // so 4 blocks share an SM: 37.0 ms against 48.6 ms for 2 blocks at 193
 // registers, at the main path's shape on an H100 (kernel_variants.py).
-template <typename T, int MAXT, int PITCH>
+template <typename T, int MAXT, int PITCH, int DESIGN>
 __global__ void __launch_bounds__(MAXT,
                                   sizeof(T) == 4 && MAXT == 128 ? 4 : 1)
 solve_stamps_kernel(const T* __restrict__ gn_in, const T* __restrict__ bkg_in,
@@ -553,6 +566,7 @@ solve_stamps_kernel(const T* __restrict__ gn_in, const T* __restrict__ bkg_in,
                     int* __restrict__ it_out, const SolveParams prm) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T red[2][kMaxVals][kMaxWarps];
+  static_assert(sizeof(red) == kStaticSmem<T>, "kStaticSmem");
 
   const int tid = threadIdx.x;
   BlockReduce<T, MAXT> blk{red, tid & 31, tid >> 5,
@@ -562,7 +576,7 @@ solve_stamps_kernel(const T* __restrict__ gn_in, const T* __restrict__ bkg_in,
                                : T(2.220446049250313e-16);
   const T inf = T(CUDART_INF);
 
-  using D = Design<T>;
+  using D = Design<T, DESIGN>;
   typename D::template Op<PITCH> op(smem, taps,
                                     typename D::Shape(prm.h, prm.w), tid);
   const bool(&ok)[kPix] = op.ok;
@@ -810,13 +824,13 @@ solve_stamps_kernel(const T* __restrict__ gn_in, const T* __restrict__ bkg_in,
 // Operator alone (chip_smoke.py measures K2's operator share with it):
 // each row x of a (rows, n) batch becomes (AT A)^reps x, through the same
 // Patch as the solver.
-template <typename T, int MAXT, int PITCH>
+template <typename T, int MAXT, int PITCH, int DESIGN>
 __global__ void __launch_bounds__(MAXT)
 apply_operator_kernel(const T* __restrict__ x_in, const T* __restrict__ taps,
                       T* __restrict__ out, int h, int w, int reps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t off = static_cast<size_t>(blockIdx.x) * h * w;
-  using D = Design<T>;
+  using D = Design<T, DESIGN>;
   typename D::template Op<PITCH> op(smem, taps, typename D::Shape(h, w),
                                     threadIdx.x);
   T v[kPix], t[kPix];
@@ -832,23 +846,50 @@ apply_operator_kernel(const T* __restrict__ x_in, const T* __restrict__ taps,
     if (op.ok[k]) out[off + op.index(k)] = v[k];
 }
 
-// Call f(MAXT, PITCH) with the instantiation for an h x w stamp's block:
-// its launch bound, and the layout's pitch where a block of 128 threads
-// has it fixed at 32; an error if the block would exceed 1024 threads.
-template <class Shape, class F>
-int by_shape(const Shape& lay, F&& f) {
+// Call f(lay, MAXT, PITCH, DESIGN) with the solver's instantiation for an
+// h x w stamp under DESIGN: its layout, its launch bound, and the layout's
+// pitch where a block of 128 threads has it fixed at 32. An error, and no
+// call, where the block cannot run: more than 1024 threads, or more
+// dynamic shared memory than the card gives a block beside the solver's
+// static buffer. The wrapper's plan makes the same checks before it calls
+// an entry; by_design also refuses a design the element type lacks.
+template <typename T, int DESIGN, class F>
+int by_shape(int h, int w, int device, F&& f) {
   using std::integral_constant;
+  const typename Design<T, DESIGN>::Shape lay(h, w);
+  int limit = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(
+      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (lay.elems() * sizeof(T) + kStaticSmem<T> > static_cast<size_t>(limit))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr integral_constant<int, DESIGN> design{};
   const int threads = lay.threads();
   if (threads <= 128 && lay.pitch == 32)
-    return f(integral_constant<int, 128>{}, integral_constant<int, 32>{});
+    return f(lay, integral_constant<int, 128>{}, integral_constant<int, 32>{},
+             design);
   if (threads <= 128)
-    return f(integral_constant<int, 128>{}, integral_constant<int, 0>{});
+    return f(lay, integral_constant<int, 128>{}, integral_constant<int, 0>{},
+             design);
   if (threads <= 256)
-    return f(integral_constant<int, 256>{}, integral_constant<int, 0>{});
+    return f(lay, integral_constant<int, 256>{}, integral_constant<int, 0>{},
+             design);
   if (threads <= 512)
-    return f(integral_constant<int, 512>{}, integral_constant<int, 0>{});
+    return f(lay, integral_constant<int, 512>{}, integral_constant<int, 0>{},
+             design);
   if (threads <= 1024)
-    return f(integral_constant<int, 1024>{}, integral_constant<int, 0>{});
+    return f(lay, integral_constant<int, 1024>{},
+             integral_constant<int, 0>{}, design);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, class F>
+int by_design(int design, int h, int w, int device, F&& f) {
+  if (design == kPipes) return by_shape<T, kPipes>(h, w, device, f);
+  if constexpr (std::is_same_v<T, float>) {
+    if (design == kTensorCores)
+      return by_shape<T, kTensorCores>(h, w, device, f);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -864,16 +905,17 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 template <typename T>
 int launch(const void* gn, const void* bkg, const void* flux, const void* sat,
            const void* taps, void* x, void* iters, int rows,
-           const SolveParams* prm, int device, void* stream) {
+           const SolveParams* prm, int design, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = prm->n;
   if (n <= 0 || n > 4096 || prm->h * prm->w != n)
     return static_cast<int>(cudaErrorInvalidValue);
-  const typename Design<T>::Shape lay(prm->h, prm->w);
-  return by_shape(lay, [&](auto maxt, auto pitch) {
-    const auto kernel = solve_stamps_kernel<T, decltype(maxt)::value,
-                                            decltype(pitch)::value>;
+  return by_design<T>(design, prm->h, prm->w, device,
+                      [&](const auto& lay, auto maxt, auto pitch, auto dsg) {
+    const auto kernel =
+        solve_stamps_kernel<T, decltype(maxt)::value, decltype(pitch)::value,
+                            decltype(dsg)::value>;
     const size_t smem = lay.elems() * sizeof(T);
     const cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -893,18 +935,19 @@ int launch(const void* gn, const void* bkg, const void* flux, const void* sat,
 // *resident reports that count.
 template <typename T>
 int launch_operator(const void* x, const void* taps, void* out, int rows,
-                    int h, int w, int reps, int* resident, int device,
-                    void* stream) {
+                    int h, int w, int reps, int design, int* resident,
+                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (h <= 0 || w <= 0 || h * w > 4096 || reps < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const typename Design<T>::Shape lay(h, w);
-  return by_shape(lay, [&](auto maxt, auto pitch) {
+  return by_design<T>(design, h, w, device,
+                      [&](const auto& lay, auto maxt, auto pitch, auto dsg) {
     constexpr int kMaxt = decltype(maxt)::value;
     constexpr int kPitch = decltype(pitch)::value;
-    const auto solver = solve_stamps_kernel<T, kMaxt, kPitch>;
-    const auto kernel = apply_operator_kernel<T, kMaxt, kPitch>;
+    constexpr int kDesign = decltype(dsg)::value;
+    const auto solver = solve_stamps_kernel<T, kMaxt, kPitch, kDesign>;
+    const auto kernel = apply_operator_kernel<T, kMaxt, kPitch, kDesign>;
     size_t smem = lay.elems() * sizeof(T);
     int blocks = 0;
     cudaError_t e = allow_smem(solver, smem);
@@ -928,22 +971,27 @@ int launch_operator(const void* x, const void* taps, void* out, int rows,
   });
 }
 
-// Resident blocks an SM of the solver's instantiation for an h x w stamp,
-// and its name as chip_smoke.py prints ptxas's report.
+// The solver's block for an h x w stamp under `design`: its threads, its
+// dynamic shared bytes, its resident blocks an SM, and its instantiation's
+// name as chip_smoke.py prints ptxas's report.
 template <typename T>
-int occupancy(int h, int w, int* blocks, char* name, int len) {
-  const typename Design<T>::Shape lay(h, w);
-  return by_shape(lay, [&](auto maxt, auto pitch) {
+int route(int design, int h, int w, int device, int* threads, int* smem,
+          int* blocks, char* name, int len) {
+  return by_design<T>(design, h, w, device,
+                      [&](const auto& lay, auto maxt, auto pitch, auto dsg) {
     constexpr int kMaxt = decltype(maxt)::value;
     constexpr int kPitch = decltype(pitch)::value;
-    const auto kernel = solve_stamps_kernel<T, kMaxt, kPitch>;
-    const size_t smem = lay.elems() * sizeof(T);
-    const cudaError_t err = allow_smem(kernel, smem);
+    constexpr int kDesign = decltype(dsg)::value;
+    const auto kernel = solve_stamps_kernel<T, kMaxt, kPitch, kDesign>;
+    const size_t bytes = lay.elems() * sizeof(T);
+    const cudaError_t err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    snprintf(name, len, "solve_stamps_kernel<%c,%d,%d>",
-             sizeof(T) == 4 ? 'f' : 'd', kMaxt, kPitch);
+    *threads = lay.threads();
+    *smem = static_cast<int>(bytes);
+    snprintf(name, len, "solve_stamps_kernel<%c,%d,%d,%d>",
+             sizeof(T) == 4 ? 'f' : 'd', kMaxt, kPitch, kDesign);
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, kernel, lay.threads(), smem));
+        blocks, kernel, lay.threads(), bytes));
   });
 }
 
@@ -951,62 +999,81 @@ int occupancy(int h, int w, int* blocks, char* name, int len) {
 
 // Plain C entry points, loaded with ctypes. Pointers are device pointers of
 // contiguous (rows, n) gn, bkg and x, (rows,) flux, sat and int32 iters,
-// and the (h, w) taps; prm is a host pointer; stream is a cudaStream_t.
-// Returns the launch's cudaError_t (0 on success).
+// and the (h, w) taps; prm is a host pointer; design is kPipes or
+// kTensorCores (float32 only), as the wrapper's plan picked it; stream is
+// a cudaStream_t. Returns the launch's cudaError_t (0 on success), or
+// cudaErrorInvalidValue, with nothing launched, for a block that cannot run.
 extern "C" int tpu_sgp_solve_stamps_f32(const void* gn, const void* bkg,
                                         const void* flux, const void* sat,
                                         const void* taps, void* x,
                                         void* iters, int rows,
-                                        const SolveParams* prm, int device,
-                                        void* stream) {
-  return launch<float>(gn, bkg, flux, sat, taps, x, iters, rows, prm, device,
-                       stream);
+                                        const SolveParams* prm, int design,
+                                        int device, void* stream) {
+  return launch<float>(gn, bkg, flux, sat, taps, x, iters, rows, prm, design,
+                       device, stream);
 }
 
 extern "C" int tpu_sgp_solve_stamps_f64(const void* gn, const void* bkg,
                                         const void* flux, const void* sat,
                                         const void* taps, void* x,
                                         void* iters, int rows,
-                                        const SolveParams* prm, int device,
-                                        void* stream) {
-  return launch<double>(gn, bkg, flux, sat, taps, x, iters, rows, prm, device,
-                        stream);
+                                        const SolveParams* prm, int design,
+                                        int device, void* stream) {
+  return launch<double>(gn, bkg, flux, sat, taps, x, iters, rows, prm,
+                        design, device, stream);
 }
 
 // The operator alone: out = (AT A)^reps x for each row of a contiguous
-// (rows, h * w) x, with the (h, w) taps, at the solver's residency (its
-// blocks an SM written to *resident, a host pointer). Returns the launch's
-// cudaError_t.
+// (rows, h * w) x, with the (h, w) taps, under `design`, at the solver's
+// residency (its blocks an SM written to *resident, a host pointer).
+// Returns the launch's cudaError_t.
 extern "C" int tpu_sgp_apply_operator_f32(const void* x, const void* taps,
                                           void* out, int rows, int h, int w,
-                                          int reps, int* resident, int device,
-                                          void* stream) {
-  return launch_operator<float>(x, taps, out, rows, h, w, reps, resident,
-                                device, stream);
+                                          int reps, int design, int* resident,
+                                          int device, void* stream) {
+  return launch_operator<float>(x, taps, out, rows, h, w, reps, design,
+                                resident, device, stream);
 }
 
 extern "C" int tpu_sgp_apply_operator_f64(const void* x, const void* taps,
                                           void* out, int rows, int h, int w,
-                                          int reps, int* resident, int device,
-                                          void* stream) {
-  return launch_operator<double>(x, taps, out, rows, h, w, reps, resident,
-                                 device, stream);
+                                          int reps, int design, int* resident,
+                                          int device, void* stream) {
+  return launch_operator<double>(x, taps, out, rows, h, w, reps, design,
+                                 resident, device, stream);
 }
 
-// Instantiation i of the solver (float32 then float64, each at a stamp that
-// takes it: 31x31, 16x16, 40x40, 64x64, 63x65): its name, the n, and its
-// resident blocks an SM. Returns -1 past the last instantiation, else the
-// cudaError_t.
+// The solver's block for an h x w stamp (f64: float64, else float32) under
+// `design`: threads, dynamic shared bytes and resident blocks an SM (host
+// pointers) and the instantiation's name. Returns the cudaError_t, or
+// cudaErrorInvalidValue where the block cannot run.
+extern "C" int tpu_sgp_stamp_solver_route(int f64, int design, int h, int w,
+                                          int device, int* threads, int* smem,
+                                          int* blocks, char* name, int len) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return f64 ? route<double>(design, h, w, device, threads, smem, blocks,
+                             name, len)
+             : route<float>(design, h, w, device, threads, smem, blocks,
+                            name, len);
+}
+
+// Instantiation i of the solver (float32 TcPatch, float32 Patch, float64
+// Patch, each at a stamp that takes it: 31x31, 16x16, 40x40, 64x64,
+// 63x65): its name, the n, and its resident blocks an SM. Returns -1 past
+// the last instantiation, else the cudaError_t.
 extern "C" int tpu_sgp_stamp_solver_occupancy(int i, int device, char* name,
                                               int len, int* n, int* blocks) {
   static const int kShapes[][2] = {
       {31, 31}, {16, 16}, {40, 40}, {64, 64}, {63, 65}};
+  static const int kKinds[][2] = {  // {f64, design}
+      {0, kTensorCores}, {0, kPipes}, {1, kPipes}};
   constexpr int kCount = sizeof(kShapes) / sizeof(kShapes[0]);
-  if (i < 0 || i >= 2 * kCount) return -1;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (i < 0 || i >= 3 * kCount) return -1;
   const int h = kShapes[i % kCount][0], w = kShapes[i % kCount][1];
+  const int* kind = kKinds[i / kCount];
+  int threads = 0, smem = 0;
   *n = h * w;
-  return i < kCount ? occupancy<float>(h, w, blocks, name, len)
-                    : occupancy<double>(h, w, blocks, name, len);
+  return tpu_sgp_stamp_solver_route(kind[0], kind[1], h, w, device, &threads,
+                                    &smem, blocks, name, len);
 }

@@ -3,8 +3,9 @@
 Port of ``solve_stamps_pallas`` (``tpu_sgp/experimental/pallas_batch.py:
 317-399``). The JAX version pads the batch to its 64-stamp tile and the
 pixels to 128 lanes, the TPU's tiling; here a row is one thread block of
-``csrc/stamp_solver.cu`` and no padding is needed. CPU tensors run the
-kernel's plain PyTorch version.
+``csrc/stamp_solver.cu``, on the route its launch plan picks from the
+stamp's shape (``kernels.stamp_solver.stamp_solver_plan``), and no padding
+is needed. CPU tensors run the kernel's plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -44,7 +45,10 @@ def solve_stamps_pallas(gn, psf, bkgs, fluxes, sat_level, cfg: SGPConfig,
 
     Returns ``(x (B, H, W), iters (B,) int32)`` on that device. Raises
     ``ValueError`` for a configuration outside the kernel's scope
-    (``pallas_batch.py:325-328``) and for stamps above 4096 pixels."""
+    (``pallas_batch.py:325-328``), for stamps above 4096 pixels, and on
+    the card for the float64 shapes whose block fits in neither
+    orientation (a side of 5 pixels or less, e.g. 4x1024), before any
+    launch."""
     rows = stamp_rows(gn, psf, bkgs, fluxes, sat_level, cfg.torch_dtype,
                       resolve_device(device, gn))
     x, iters = solve_rows(*rows, cfg)

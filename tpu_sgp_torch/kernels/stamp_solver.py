@@ -12,15 +12,29 @@ The operator is the dense circulant of ``ops.psf_operator.
 build_circulant_matrix``: ``A(x) = C x`` is a circular convolution by the
 H*W taps ``k = fftshift(psf)`` and ``AT(x) = C^T x`` a circular
 correlation. The kernel takes the taps; the plain version builds C from
-them. In float32 the kernel runs the operator on the tensor cores, as
-three TF32 products a multiply-add (hi*hi + hi*lo + lo*hi of each value's
-TF32 split), which keeps float32 accuracy as the reference's
-``Precision.HIGHEST`` does: a block has one warp a 16 x 16 tile of the
-stamp padded to multiples of 16, 32 * ceil(H/16) * ceil(W/16) threads. In
-float64 it runs on the FP64 pipes: ceil(H/2) * ceil(W/4) threads, each
-owning a 2 x 4 patch of pixels. A stamp shape past 1024 threads (in
-float32, a side under 8 pixels against one over 512), or whose tap tables
-and staged input exceed the card's shared memory, fails to launch.
+them. The kernel has two designs of the operator, and
+``stamp_solver_plan`` picks one from the stamp's shape before the launch:
+
+- ``TcPatch`` (float32): the tensor cores, three TF32 products a
+  multiply-add (hi*hi + hi*lo + lo*hi of each value's TF32 split), which
+  keeps float32 accuracy as the reference's ``Precision.HIGHEST`` does; one
+  warp a 16 x 16 tile of the stamp padded to multiples of 16,
+  32 * ceil(H/16) * ceil(W/16) threads;
+- ``Patch`` (float32 on the FP32 pipes, float64 on the FP64 pipes):
+  ceil(H/2) * ceil(W/4) threads, each owning a 2 x 4 patch of pixels.
+
+A block holds at most 1024 threads and the card's per-block shared
+memory (the tap tables and the staged input, beside the solver's
+reduction buffer), read from the card at the launch (the H100's 227 KB
+where no card is asked). float32 takes the first of ``TcPatch`` on the H x W
+stamp, ``TcPatch`` on its W x H transpose, ``Patch`` on H x W, ``Patch`` on
+W x H that fits: every shape up to 4096 pixels has one. float64 takes
+``Patch`` in the first orientation that fits; the skinny shapes that fit
+neither (every one has a side of 5 or less, e.g. 4 x 1024) raise
+``ValueError`` before anything reaches the card. A transposed route solves
+the transposed stamps with the transposed taps and transposes x back: a
+circular convolution commutes with transposing both, and every sum of the
+solve runs over all pixels, so only the order of those sums changes.
 
 ``solve_rows`` launches ``csrc/stamp_solver.cu`` for CUDA tensors and calls
 ``solve_rows_plain`` for CPU tensors; a CUDA call that cannot launch
@@ -28,7 +42,9 @@ raises, it never falls back.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -39,6 +55,117 @@ from ..projection.flux_projection import bracket_bits
 
 # the dense operator's own limit (tpu_sgp/ops/psf_operator.py:38-40)
 MAX_PIXELS = 4096
+# a block's threads, and its shared memory on an H100
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB): the plan's limit
+# where it is given no card's own
+MAX_THREADS = 1024
+SMEM_PER_BLOCK = 232448
+# the solver's static shared memory, red[2][kMaxVals][kMaxWarps] of T
+_STATIC_VALUES = 2 * 8 * 32
+# the designs' codes in csrc/stamp_solver.cu (kPipes, kTensorCores)
+_DESIGN_CODE = {'Patch': 0, 'TcPatch': 1}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _block(design: str, h: int, w: int) -> tuple:
+    """``(threads, shared elements, tap row pitch)`` of a design's block for
+    an h x w stamp: ``TcLayout`` and ``Layout`` of csrc/stamp_solver.cu."""
+    if design == 'TcPatch':
+        m, p = 16 * _cdiv(h, 16), 16 * _cdiv(w, 16)
+        return 32 * (m // 16) * (p // 16), 2 * h * 2 * p + 4 * h * (p + 4), p
+    groups, pairs = _cdiv(w, 4), _cdiv(h, 2)
+    pitch = 4 * groups
+    xrows, xcols = 2 * pairs + h, 4 * groups + pitch
+    stride = (xcols + 1 + 3) // 4 * 4
+    return (32 * _cdiv(pairs * groups, 32),
+            2 * (h + 2) * pitch + xrows * stride, pitch)
+
+
+@dataclasses.dataclass(frozen=True)
+class StampPlan:
+    """The kernel's block for one stamp shape: the operator's ``design``
+    (``'TcPatch'`` or ``'Patch'``), whether the stamps are solved
+    ``transposed``, the block's ``threads``, its dynamic shared bytes
+    ``smem`` and its tap row length ``pitch`` (``by_shape`` in
+    csrc/stamp_solver.cu fixes a pitch of 32 at compile time in a block of
+    up to 128 threads)."""
+    design: str
+    transposed: bool
+    dtype: torch.dtype
+    threads: int
+    smem: int
+    pitch: int
+
+    @property
+    def route(self) -> str:
+        """e.g. ``'TcPatch'``, ``'Patch<float> transposed'``."""
+        name = self.design if self.design == 'TcPatch' else \
+            f'Patch<{"float" if self.dtype == torch.float32 else "double"}>'
+        return name + (' transposed' if self.transposed else '')
+
+
+def route_plan(design: str, transposed: bool, h: int, w: int,
+               dtype: torch.dtype, smem_limit: int = SMEM_PER_BLOCK):
+    """``(plan, '')`` of ``design`` on an h x w stamp (on its w x h
+    transpose if ``transposed``), or ``(None, reason)`` where its block
+    cannot run on a card of ``smem_limit`` shared bytes a block."""
+    if design == 'TcPatch' and dtype != torch.float32:
+        return None, 'TcPatch is float32 only'
+    bh, bw = (w, h) if transposed else (h, w)
+    threads, elems, pitch = _block(design, bh, bw)
+    size = torch.finfo(dtype).bits // 8
+    smem = elems * size
+    if threads > MAX_THREADS:
+        return None, f'{threads} threads'
+    if smem + _STATIC_VALUES * size > smem_limit:
+        return None, (f'{smem + _STATIC_VALUES * size} B of shared memory '
+                      f'(limit {smem_limit})')
+    return StampPlan(design, transposed, dtype, threads, smem, pitch), ''
+
+
+def stamp_solver_plan(h: int, w: int, dtype: torch.dtype,
+                      smem_limit: int = SMEM_PER_BLOCK) -> StampPlan:
+    """The kernel's route for h x w stamps of ``dtype``, from the shape
+    alone: float32 takes the first of ``TcPatch``, ``TcPatch`` transposed,
+    ``Patch``, ``Patch`` transposed whose block fits ``MAX_THREADS`` and
+    ``smem_limit`` shared bytes; float64 the first of ``Patch``, ``Patch``
+    transposed. Raises ``ValueError`` where none fits."""
+    if h * w > MAX_PIXELS:
+        raise ValueError(f'stamps of {h}x{w} = {h * w} pixels exceed the '
+                         f'dense operator\'s {MAX_PIXELS}')
+    designs = ('TcPatch', 'Patch') if dtype == torch.float32 else ('Patch',)
+    reasons = []
+    for design in designs:
+        for transposed in (False, True):
+            plan, why = route_plan(design, transposed, h, w, dtype,
+                                   smem_limit)
+            if plan is not None:
+                return plan
+            side = f'{w}x{h}' if transposed else f'{h}x{w}'
+            reasons.append(f'{design} on {side} needs {why}')
+    raise ValueError(f'{str(dtype).removeprefix("torch.")} stamps of '
+                     f'{h}x{w} fit no block of the whole-solver kernel: '
+                     + '; '.join(reasons))
+
+
+def transpose_rows(v: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, h*w) rows of h x w stamps as contiguous (B, w*h) rows of their
+    w x h transposes."""
+    return v.reshape(v.shape[0], h, w).transpose(1, 2).reshape(
+        v.shape).contiguous()
+
+
+def solve_transposed(solve, gn, bkg, flux, sat, taps, cfg):
+    """``solve`` (``solve_rows_plain``'s arguments and result) on the
+    stamps' transposes with the transposed taps, x transposed back: the
+    same solve as on the stamps, summed in another order."""
+    h, w = taps.shape
+    x, iters = solve(transpose_rows(gn, h, w), transpose_rows(bkg, h, w),
+                     flux, sat, taps.T.contiguous(), cfg)
+    return transpose_rows(x, w, h), iters
 
 
 def check_scope(cfg: SGPConfig) -> None:
@@ -236,7 +363,8 @@ def _entry(dtype: torch.dtype):
     fn = getattr(load_library('stamp_solver'), _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
                                            ctypes.POINTER(_Params),
-                                           ctypes.c_int, ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -245,10 +373,58 @@ def _entry(dtype: torch.dtype):
 def _operator_entry(dtype: torch.dtype):
     from ._build import load_library
     fn = getattr(load_library('stamp_solver'), _OPERATOR_ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _smem_limit(device: int) -> int:
+    """The card's shared bytes a block may opt in to, as the C entries
+    read it (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def device_plan(h: int, w: int, dtype: torch.dtype,
+                device: torch.device) -> StampPlan:
+    """``stamp_solver_plan`` under the shared memory of the card that
+    holds ``device``."""
+    return stamp_solver_plan(h, w, dtype, _smem_limit(device.index))
+
+
+@functools.cache
+def _route_entry():
+    from ._build import load_library
+    fn = load_library('stamp_solver').tpu_sgp_stamp_solver_route
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3 \
+        + [ctypes.c_char_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def card_block(design: str, h: int, w: int, dtype: torch.dtype,
+               device: int = 0):
+    """The card's own account of ``design``'s block for h x w stamps of
+    ``dtype``, from the C entries' own layouts (``by_shape`` in
+    csrc/stamp_solver.cu), launching nothing: a dict of ``threads``,
+    dynamic shared bytes ``smem``, resident ``blocks_per_sm`` and the
+    kernel's ``instance``, or None where the C entries refuse the block.
+    The card's checks hold ``route_plan`` to it."""
+    threads, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    name = ctypes.create_string_buffer(128)
+    err = _route_entry()(int(dtype == torch.float64), _DESIGN_CODE[design],
+                         h, w, device, ctypes.byref(threads),
+                         ctypes.byref(smem), ctypes.byref(blocks), name,
+                         len(name))
+    if err == 1:                                # cudaErrorInvalidValue
+        return None
+    if err != 0:
+        raise RuntimeError(f'{design} block query for {h}x{w} failed: '
+                           f'CUDA error {err}')
+    return dict(threads=threads.value, smem=smem.value,
+                blocks_per_sm=blocks.value, instance=name.value.decode())
 
 
 def _check_rows(gn, bkg, flux, sat, taps) -> None:
@@ -275,8 +451,11 @@ def solve_rows(gn: torch.Tensor, bkg: torch.Tensor, flux: torch.Tensor,
     ``(x (B, N), iters (B,) int32)``.
 
     CPU tensors take ``solve_rows_plain``. CUDA tensors launch the kernel,
-    one thread block per row and the whole batch in one launch;
-    ``solve_rows.launches`` counts the launches."""
+    one thread block per row and the whole batch in one launch, on the
+    route ``stamp_solver_plan`` picks from the taps' shape and the card's
+    shared memory;
+    ``solve_rows.launches`` counts the launches and ``solve_rows.routes``
+    them by route."""
     check_scope(cfg)
     _check_rows(gn, bkg, flux, sat, taps)
     if not gn.is_cuda:
@@ -293,6 +472,14 @@ def solve_rows(gn: torch.Tensor, bkg: torch.Tensor, flux: torch.Tensor,
                     ('taps', taps)):
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
+    plan = device_plan(*taps.shape, gn.dtype, gn.device)
+    launch = functools.partial(_launch, plan=plan)
+    if plan.transposed:
+        return solve_transposed(launch, gn, bkg, flux, sat, taps, cfg)
+    return launch(gn, bkg, flux, sat, taps, cfg)
+
+
+def _launch(gn, bkg, flux, sat, taps, cfg, *, plan):
     rows, n = gn.shape
     h, w = taps.shape
     x = torch.empty_like(gn)
@@ -307,15 +494,18 @@ def solve_rows(gn: torch.Tensor, bkg: torch.Tensor, flux: torch.Tensor,
     err = _entry(gn.dtype)(gn.data_ptr(), bkg.data_ptr(), flux.data_ptr(),
                            sat.data_ptr(), taps.data_ptr(), x.data_ptr(),
                            iters.data_ptr(), rows, ctypes.byref(prm),
-                           gn.device.index, stream.cuda_stream)
+                           _DESIGN_CODE[plan.design], gn.device.index,
+                           stream.cuda_stream)
     if err != 0:
-        raise RuntimeError(f'stamp solver kernel launch failed: CUDA error '
-                           f'{err}')
+        raise RuntimeError(f'stamp solver kernel launch failed on route '
+                           f'{plan.route} ({h}x{w}): CUDA error {err}')
     solve_rows.launches += 1
+    solve_rows.routes[plan.route] += 1
     return x, iters
 
 
 solve_rows.launches = 0
+solve_rows.routes = collections.Counter()
 
 
 def apply_operator_plain(x: torch.Tensor, taps: torch.Tensor,
@@ -332,12 +522,11 @@ def apply_operator_plain(x: torch.Tensor, taps: torch.Tensor,
 def apply_operator(x: torch.Tensor, taps: torch.Tensor,
                    reps: int) -> torch.Tensor:
     """The whole-solver kernel's operator alone: ``(AT A)^reps`` on every
-    row of ``x`` (B, N), through the same device code as ``solve_rows``'s
-    kernel (float32 on the tensor cores, float64 on the FP64 pipes), one
-    block a row, with no more blocks an SM than the solver keeps
-    (``apply_operator.resident`` holds that count after a launch).
-    It measures the operator's share of the kernel's time; the solver never
-    calls it. CPU tensors take ``apply_operator_plain``."""
+    row of ``x`` (B, N), through the same device code and on the same route
+    as ``solve_rows``'s kernel, one block a row, with no more blocks an SM
+    than the solver keeps (``apply_operator.resident`` holds that count
+    after a launch). It measures the operator's share of the kernel's time;
+    the solver never calls it. CPU tensors take ``apply_operator_plain``."""
     if x.dim() != 2 or taps.dim() != 2 or taps.numel() != x.shape[1]:
         raise ValueError(f'x must be (B, N) and taps (H, W) with H*W = N, '
                          f'got {tuple(x.shape)} and {tuple(taps.shape)}')
@@ -352,20 +541,25 @@ def apply_operator(x: torch.Tensor, taps: torch.Tensor,
                         f'{taps.device}')
     if not (x.is_contiguous() and taps.is_contiguous()):
         raise ValueError('x and taps must be contiguous')
+    h, w = taps.shape
+    plan = device_plan(h, w, x.dtype, x.device)
+    if plan.transposed:
+        x, taps = transpose_rows(x, h, w), taps.T.contiguous()
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
-    h, w = taps.shape
     stream = torch.cuda.current_stream(x.device)
     resident = ctypes.c_int()
     err = _operator_entry(x.dtype)(x.data_ptr(), taps.data_ptr(),
-                                   out.data_ptr(), x.shape[0], h, w, reps,
+                                   out.data_ptr(), x.shape[0], *taps.shape,
+                                   reps, _DESIGN_CODE[plan.design],
                                    ctypes.byref(resident), x.device.index,
                                    stream.cuda_stream)
     if err != 0:
-        raise RuntimeError(f'operator kernel launch failed: CUDA error {err}')
+        raise RuntimeError(f'operator kernel launch failed on route '
+                           f'{plan.route}: CUDA error {err}')
     apply_operator.resident = resident.value
-    return out
+    return transpose_rows(out, w, h) if plan.transposed else out
 
 
 apply_operator.resident = 0

@@ -3,7 +3,9 @@ star fields, for tests and the chip smoke run.
 
 A numpy copy of ``tpu_sgp/simulate/__init__.py:21-119``: the JAX package's
 module cannot be imported without importing JAX. The tests hold the copy
-bit-equal to the original.
+bit-equal to the original. ``shaped_star_stamps``, stamps of any shape for
+the whole-solver kernel's routes, is the port's own and stays out of
+``__all__``, which matches the JAX module's.
 """
 from __future__ import annotations
 
@@ -96,6 +98,33 @@ def synthetic_star_stamps(n: int, size: int = 31, fwhm: float = 2.8,
         stamps[i] = rng.poisson(np.maximum(blurred, 0.0))
     bkgs = np.full(n, float(bkg))
     return stamps, psf, bkgs, fluxes
+
+
+def shaped_star_stamps(n: int, height: int, width: int, seed: int):
+    """n single-star height x width stamps and their shared PSF, for stamps
+    of any shape: a Gaussian PSF of FWHM 2.8 pixels on the height x width
+    grid, a background of 120, Poisson noise, and one star a stamp in its
+    middle third, of 2e3 to 5e4 counts times max(1, height * width / 961)
+    (a stamp larger than 31 x 31 keeps its flux a pixel). Not part of the
+    JAX package. Returns float64 arrays (stamps (n, height, width), psf,
+    bkgs (n,), fluxes (n,)), the fluxes the stamps' sums less the
+    background."""
+    rng = np.random.default_rng(seed)
+    sigma = 2.8 / (2 * np.sqrt(2 * np.log(2)))
+    y = np.arange(height) - (height - 1) / 2
+    x = np.arange(width) - (width - 1) / 2
+    psf = np.exp(-0.5 * (y[:, None] ** 2 + x[None] ** 2) / sigma ** 2)
+    psf /= psf.sum()
+    bkgs = np.full(n, 120.0)
+    stamps = np.empty((n, height, width))
+    for i in range(n):
+        truth = np.zeros((height, width))
+        truth[rng.integers(height // 3, height - height // 3),
+              rng.integers(width // 3, width - width // 3)] = \
+            rng.uniform(2e3, 5e4) * max(1.0, height * width / 961)
+        blurred = _circular_degrade(truth, psf) + bkgs[i]
+        stamps[i] = rng.poisson(np.maximum(blurred, 0.0))
+    return stamps, psf, bkgs, stamps.sum(axis=(1, 2)) - height * width * bkgs
 
 
 def synthetic_star_field(height: int, width: int, n_stars: int = 200,
