@@ -22,6 +22,7 @@ import torch
 
 from .config import SGPConfig
 from .device import resolve_device
+from .observability import span, traced
 from .solvers.sgp import SGPResult, solve
 
 PSF_NORM_TOL_FACTOR = 1e4  # * eps (api.py:26)
@@ -64,36 +65,38 @@ def _validate_inputs(gn, bkg, flux, proj_type) -> None:
                 f'total flux, got {resolved!r}{hint}.')
 
 
+@traced('entry')
 def _run(gn, psf, bkg, cfg: SGPConfig, flux, obj, beta0, lr0, sat_level,
          device=None):
     """``_run`` (``api.py:77-116``) around the batched solver: every image
     argument gains a leading batch axis of 1 and every result loses it."""
-    # contiguous copies of views with negative strides (np.fliplr), which
-    # torch.as_tensor refuses
-    gn = np.ascontiguousarray(gn)
-    psf = np.ascontiguousarray(psf)
-    check_psf_normalized(psf)
-    _validate_inputs(gn, bkg, flux, cfg.proj_type)
-    if cfg.save:
-        # the observed image in working units (api.py:82-89)
-        import os
+    with span('entry.prepare'):
+        # contiguous copies of views with negative strides (np.fliplr),
+        # which torch.as_tensor refuses
+        gn = np.ascontiguousarray(gn)
+        psf = np.ascontiguousarray(psf)
+        check_psf_normalized(psf)
+        _validate_inputs(gn, bkg, flux, cfg.proj_type)
+        if cfg.save:
+            # the observed image in working units (api.py:82-89)
+            import os
 
-        from .image import write_fits
-        from .solvers.sgp import SAVE_DIR
-        os.makedirs(SAVE_DIR, exist_ok=True)
-        scaled = gn / np.max(gn) if cfg.scale_data else gn
-        write_fits(os.path.join(SAVE_DIR, 'orig.fits'), scaled)
-    dev = resolve_device(device)
-    bkg_arr = np.broadcast_to(np.asarray(bkg, dtype=np.float64),
-                              gn.shape).copy()
-    if cfg.init_recon == 1:
-        np.random.seed(42)
-        x0 = np.random.randn(*gn.shape)
-    else:
-        x0 = np.zeros(gn.shape)
-    flux_in = 0.0 if flux is None else float(np.sum(flux))
-    obj_in = np.zeros(gn.shape) if obj is None else np.asarray(obj)
-    sat_in = 0.0 if sat_level is None else float(sat_level)
+            from .image import write_fits
+            from .solvers.sgp import SAVE_DIR
+            os.makedirs(SAVE_DIR, exist_ok=True)
+            scaled = gn / np.max(gn) if cfg.scale_data else gn
+            write_fits(os.path.join(SAVE_DIR, 'orig.fits'), scaled)
+        dev = resolve_device(device)
+        bkg_arr = np.broadcast_to(np.asarray(bkg, dtype=np.float64),
+                                  gn.shape).copy()
+        if cfg.init_recon == 1:
+            np.random.seed(42)
+            x0 = np.random.randn(*gn.shape)
+        else:
+            x0 = np.zeros(gn.shape)
+        flux_in = 0.0 if flux is None else float(np.sum(flux))
+        obj_in = np.zeros(gn.shape) if obj is None else np.asarray(obj)
+        sat_in = 0.0 if sat_level is None else float(sat_level)
 
     def sync():
         if dev.type == 'cuda':
@@ -103,7 +106,8 @@ def _run(gn, psf, bkg, cfg: SGPConfig, flux, obj, beta0, lr0, sat_level,
     t0 = timer()
     res: SGPResult = solve(gn[None], psf, bkg_arr[None], x0[None], flux_in,
                            obj_in[None], beta0, lr0, sat_in, cfg, device=dev)
-    res = SGPResult(*(a[0].cpu().numpy() for a in res))
+    with span('entry.download'):
+        res = SGPResult(*(a[0].cpu().numpy() for a in res))
     sync()
     wall = timer() - t0
 

@@ -1,4 +1,4 @@
-"""Observability: timing, profiling, NaN guards, solver logging.
+"""Observability: timing, profiling, spans, NaN guards, solver logging.
 
 Port of ``tpu_sgp/observability.py:1`` in PyTorch idiom, the same five
 names and contracts: wall-clock timing that waits for the card
@@ -8,14 +8,24 @@ by name, including the port's own CUDA kernels), an opt-in NaN/Inf guard
 (the reference's ``np.errstate`` overflow guard), and post-hoc logging of
 the per-iteration convergence lines of the reference's ``sgp.log``
 (reference sgp.py:104, 398-411).
+
+Beside them, the port's own host spans: ``span(name)`` around a phase of
+the entry points, the solver loop and the projection, and ``host_flag``
+for each host read of a device flag. They record only while tracing is on
+(a ``torch.profiler`` records, or inside a ``tracing()`` block); then each
+span adds to a recording of counts and total and self times
+(``last_trace()``) and, under a profiler, lies in its trace as
+``tpu_sgp_torch.<name>`` on the profiler's own clock.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
+import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -78,8 +88,10 @@ def profiled(logdir: str):
     """Capture a ``torch.profiler`` trace of the block into ``logdir``
     (created if missing) as a Chrome trace, ``*.pt.trace.json`` (view with
     TensorBoard or Perfetto): host operations and, with a card, every CUDA
-    kernel the process launches by name. A profiler that cannot start
-    raises."""
+    kernel the process launches by name, and beside them the program's
+    own spans as ``tpu_sgp_torch.<name>`` host events (``span``), so that
+    every gap between kernels lies under a named phase of the program. A
+    profiler that cannot start raises."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
     activities = [ProfilerActivity.CPU]
@@ -88,6 +100,182 @@ def profiled(logdir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(logdir)):
         yield
+
+
+# ---- spans ------------------------------------------------------------------
+
+SPAN_PREFIX = 'tpu_sgp_torch.'
+
+# A span's event in a profiler's trace. The fast record function is a host
+# event alone: ``torch.profiler.record_function`` also lays a
+# ``gpu_user_annotation`` over the kernels of the range on the card's line,
+# which a reader of that line would take for device work.
+_PROFILER_EVENT = getattr(torch._C._profiler, '_RecordFunctionFast', None)
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+class SpanStats(NamedTuple):
+    """The spans of one name (or of one path) in a recording."""
+    count: int
+    total_s: float    # their whole durations
+    self_s: float     # their durations less those of their child spans
+
+
+class Trace:
+    """One recording: for each path of span names from a root span, the
+    number of spans and their total and self nanoseconds. Aggregates only,
+    so that a long traced run does not grow; updates take a lock, so that
+    spans of several threads add up."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._paths: dict = {}
+
+    def _add(self, path: tuple, total_ns: int, self_ns: int) -> None:
+        with self._lock:
+            agg = self._paths.get(path)
+            if agg is None:
+                self._paths[path] = [1, total_ns, self_ns]
+            else:
+                agg[0] += 1
+                agg[1] += total_ns
+                agg[2] += self_ns
+
+    def by_path(self) -> dict:
+        """{(root name, ..., name): SpanStats}."""
+        with self._lock:
+            return {p: SpanStats(c, t / 1e9, s / 1e9)
+                    for p, (c, t, s) in self._paths.items()}
+
+    def by_name(self) -> dict:
+        """{name: SpanStats} summed over every path that ends in the name
+        (a span inside one of its own name counts in both totals)."""
+        out = {}
+        for path, st in self.by_path().items():
+            c, t, s = out.get(path[-1], (0, 0.0, 0.0))
+            out[path[-1]] = SpanStats(c + st.count, t + st.total_s,
+                                      s + st.self_s)
+        return out
+
+    def get(self, name: str) -> SpanStats:
+        """The spans named ``name`` (zeros if none)."""
+        return self.by_name().get(name, SpanStats(0, 0.0, 0.0))
+
+
+class _NoSpan:
+    """What ``span`` returns while tracing is off: one shared object."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+_local = threading.local()      # .stack: this thread's open spans
+_state_lock = threading.Lock()
+_explicit = 0                   # open tracing() blocks
+_fresh = True                   # the last span opened untraced
+_current: Optional[Trace] = None
+
+
+class _Span:
+    __slots__ = ('name', 'trace', 'event', 'path', 'child_ns', 't0')
+
+    def __init__(self, name: str, trace: Trace, profiling: bool):
+        self.name = name
+        self.trace = trace
+        self.event = (_PROFILER_EVENT(SPAN_PREFIX + name)
+                      if profiling and _PROFILER_EVENT is not None else None)
+
+    def __enter__(self):
+        stack = getattr(_local, 'stack', None)
+        if stack is None:
+            stack = _local.stack = []
+        self.path = stack[-1].path + (self.name,) if stack else (self.name,)
+        self.child_ns = 0
+        stack.append(self)
+        if self.event is not None:
+            self.event.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self.t0
+        if self.event is not None:
+            self.event.__exit__(*exc)
+        stack = _local.stack
+        stack.pop()
+        if stack:
+            stack[-1].child_ns += ns
+        self.trace._add(self.path, ns, ns - self.child_ns)
+        return False
+
+
+def span(name: str):
+    """A host span around one phase of the program, as a context manager.
+
+    While tracing is off (no ``torch.profiler`` records and no
+    ``tracing()`` block is open) it returns the shared ``NO_SPAN`` and
+    records nothing. While it is on, the span's duration on
+    ``time.perf_counter_ns`` adds to the newest recording under its path
+    from the innermost span open on the same thread, and under a profiler
+    it lies in the trace as the host event ``tpu_sgp_torch.<name>``. A new
+    recording starts with the first span opened while tracing is on after
+    one opened while it was off."""
+    global _fresh, _current
+    profiling = _profiler_enabled()
+    if not (profiling or _explicit):
+        _fresh = True
+        return NO_SPAN
+    if _fresh:
+        with _state_lock:
+            if _fresh:
+                _current, _fresh = Trace(), False
+    return _Span(name, _current, profiling)
+
+
+def traced(name: str):
+    """Decorator: every call of the function runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            with span(name):
+                return fn(*args, **kw)
+        return call
+    return wrap
+
+
+def host_flag(flag: torch.Tensor) -> bool:
+    """``bool(flag)``, the host's wait for a device flag, in a ``sync``
+    span."""
+    with span('sync'):
+        return bool(flag)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record the program's spans inside the block, with or without a
+    profiler; yields the block's own recording (a ``Trace``). The next span
+    traced after the block starts a recording of its own."""
+    global _explicit, _current, _fresh
+    trace = Trace()
+    with _state_lock:
+        _current, _fresh = trace, False
+        _explicit += 1
+    try:
+        yield trace
+    finally:
+        with _state_lock:
+            _explicit -= 1
+            _fresh = True
+
+
+def last_trace() -> Optional[Trace]:
+    """The newest recording, or None if no span was ever traced."""
+    return _current
 
 
 class _NanGuard(TorchDispatchMode):

@@ -27,6 +27,8 @@ import math
 import torch
 import torch.distributed as dist
 
+from ..observability import host_flag
+
 # collectives called, by kind, since the counts were last set to 0
 CALLS = {'all_reduce': 0, 'exchange': 0, 'all_gather': 0}
 
@@ -82,8 +84,8 @@ class MeshAxes:
     def any(self, flag: torch.Tensor) -> bool:
         """True on every rank if ``flag`` is True on any: the OR-reduced
         continue flag of a loop that must run the same trips everywhere."""
-        return bool(self.all_reduce(flag.reshape(1).to(torch.int32),
-                                    'max')[0])
+        return host_flag(self.all_reduce(flag.reshape(1).to(torch.int32),
+                                         'max')[0])
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t``, stacked as (size, *t.shape) in the row-major

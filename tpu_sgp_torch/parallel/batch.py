@@ -22,6 +22,7 @@ import torch
 
 from ..config import SGPConfig
 from ..device import resolve_device
+from ..observability import span, traced
 from ..ops.mesh import MeshAxes
 from ..solvers.sgp import (SGPResult, SGPState, resume_from_state, solve,
                            solve_with_state)
@@ -57,21 +58,23 @@ def _batched_solve_two_phase(stamps, psf, bkgs, x0, fluxes, obj, beta0, lr0,
         st = st._replace(err=torch.nn.functional.pad(st.err, (0, pad)))
 
     for _ in range(2):
-        # workable lanes first (False sorts before True; stable ties). Not
-        # just ~converged: a lane that ran to cfg.max_iter keeps
-        # converged=False and would crowd out workable lanes.
-        done = st.converged | (st.it > cfg.max_iter)
-        idx = torch.argsort(done.to(torch.uint8), stable=True)[:tail_bucket]
-        st_tail = SGPState(*(_take(a, idx) for a in st))
-        args_tail = [_take(a, idx) for a in (stamps, bkgs, x0, fluxes, obj,
-                                             beta0, lr0, sat)]
-        # per-stamp PSFs follow their lanes: the tail builds its operators
-        # from its own PSFs (batch.py:119)
-        psf_tail = _take(psf, idx) if psf.dim() == 3 else psf
-        _, st_tail = resume_from_state(args_tail[0], psf_tail,
-                                       *args_tail[1:], st_tail, cfg)
-        st = SGPState(*(full.index_copy(0, idx, part)
-                        for full, part in zip(st, st_tail)))
+        with span('entry.compact'):
+            # workable lanes first (False sorts before True; stable ties).
+            # Not just ~converged: a lane that ran to cfg.max_iter keeps
+            # converged=False and would crowd out workable lanes.
+            done = st.converged | (st.it > cfg.max_iter)
+            idx = torch.argsort(done.to(torch.uint8),
+                                stable=True)[:tail_bucket]
+            st_tail = SGPState(*(_take(a, idx) for a in st))
+            args_tail = [_take(a, idx) for a in (stamps, bkgs, x0, fluxes,
+                                                 obj, beta0, lr0, sat)]
+            # per-stamp PSFs follow their lanes: the tail builds its
+            # operators from its own PSFs (batch.py:119)
+            psf_tail = _take(psf, idx) if psf.dim() == 3 else psf
+            _, st_tail = resume_from_state(args_tail[0], psf_tail,
+                                           *args_tail[1:], st_tail, cfg)
+            st = SGPState(*(full.index_copy(0, idx, part)
+                            for full, part in zip(st, st_tail)))
 
     res, _ = resume_from_state(stamps, psf, bkgs, x0, fluxes, obj, beta0,
                                lr0, sat, st, cfg)
@@ -239,6 +242,7 @@ def _restore_sharded(stamps, psf, bkgs, cfg, mesh, batch_axis, tail_bucket,
                               for f in local)), b)
 
 
+@traced('entry')
 def restore_stamps(stamps, psf, bkgs, cfg: SGPConfig, *, fluxes=None,
                    x0=None, obj=None, beta0=1.0, lr0=1e-3, sat_level=0.0,
                    mesh=None, batch_axis: str = 'batch',
@@ -316,9 +320,10 @@ def restore_stamps(stamps, psf, bkgs, cfg: SGPConfig, *, fluxes=None,
                  flatten=flatten), device)
         return _unpad(res, b_orig) if pad else res
 
-    (stamps, psf, bkgs, fluxes, x0, obj, beta0, lr0, sat) = _prep(
-        stamps, psf, bkgs, fluxes, x0, obj, beta0, lr0, sat_level,
-        cfg.torch_dtype, device)
+    with span('entry.prepare'):
+        (stamps, psf, bkgs, fluxes, x0, obj, beta0, lr0, sat) = _prep(
+            stamps, psf, bkgs, fluxes, x0, obj, beta0, lr0, sat_level,
+            cfg.torch_dtype, device)
 
     img_shape = tuple(stamps.shape[1:])
     if flatten:

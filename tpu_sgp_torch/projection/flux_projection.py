@@ -31,6 +31,7 @@ import math
 import torch
 
 from ..kernels.flux_projection import project_rows
+from ..observability import host_flag
 from ..ops.reduce import gmax, gmin, gsum
 
 METHODS = ('bisect', 'section', 'sort', 'secant', 'pallas')
@@ -203,7 +204,7 @@ def project_df_bisect_warm(b, c, dia, scaling, sat_level=None,
     while True:
         floor = 0.75 * eps * (lo.abs() + hi.abs())
         run = hi - lo > torch.maximum(target, floor)
-        if t >= n_steps + 2 or not bool(run.any()):
+        if t >= n_steps + 2 or not host_flag(run.any()):
             break
         width = hi - lo
         seg = width / (k + 1)
@@ -445,7 +446,7 @@ def project_df(b, c, dia, scaling, sat_level=None, max_projs: int = 1000,
     while True:
         run = torch.where(up, (r < 0) & torch.isfinite(dlam),
                           (r > 0) & ~broke) & (biter < max_projs) & ~done0
-        if not bool(run.any()):
+        if not host_flag(run.any()):
             break
         s = torch.clamp_min(r_a / r - 1.0, 0.1)
         dn = dlam + dlam / s
@@ -478,7 +479,7 @@ def project_df(b, c, dia, scaling, sat_level=None, max_projs: int = 1000,
     while True:
         run = ((r.abs() > tol_r) & (dlam > tol_lam * (1.0 + lam.abs()))
                & (siter < maxit_s) & ~early)
-        if not bool(run.any()):
+        if not host_flag(run.any()):
             break
         # r > 0, s <= 2: plain secant through the upper bracket
         u1_s = 1.0 - rl / r

@@ -40,6 +40,7 @@ import torch
 
 from ..config import SGPConfig
 from ..device import resolve_device
+from ..observability import host_flag, span
 from ..ops import divergence as dv
 from ..ops.mesh import resolve_axes
 from ..ops.psf_operator import make_operator
@@ -134,7 +135,29 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
                 device=None, mesh=None):
     """Shared implementation (``sgp.py:155-573``); with ``rstate`` the
     preamble recomputes the constants and the loop continues from the
-    checkpointed state."""
+    checkpointed state. Returns (SGPResult, final SGPState)."""
+    with span('solver.solve'):
+        with span('solver.setup'):
+            state, body, finish, sync = _setup(
+                gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level, cfg,
+                rstate, device, mesh)
+        while True:
+            active = state.keep
+            if not (sync.any(active.any()) if sync
+                    else host_flag(active.any())):
+                break
+            with span('solver.trip'):
+                state = body(state, active)
+        return finish(state), state
+
+
+def _setup(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
+           cfg: SGPConfig, rstate, device, mesh):
+    """The preamble of ``_solve_impl``: the inputs on the device, the
+    constants, the operator and the first state (or the checkpointed one).
+    Returns (state, body, finish, sync): ``body(state, active)`` is one
+    trip of the loop, ``finish(state)`` the result, ``sync`` the loop's
+    ``sync_axes``."""
     ax = resolve_axes(mesh, cfg.axis_names)
     sync = resolve_axes(mesh, cfg.sync_axes)
     dt = cfg.torch_dtype
@@ -230,11 +253,12 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
 
     def proj(point, dia):
         """``proj`` (sgp.py:232-260)."""
-        if cfg.proj_type == 0:
-            return torch.clamp_min(point, 0.0)
-        return project(method, flux, point, dia, scaling,
-                       sat_level=sat_arg, has_sat=cfg.has_sat_level,
-                       max_projs=cfg.max_projs, axes=ax)
+        with span('projection'):
+            if cfg.proj_type == 0:
+                return torch.clamp_min(point, 0.0)
+            return project(method, flux, point, dia, scaling,
+                           sat_level=sat_arg, has_sat=cfg.has_sat_level,
+                           max_projs=cfg.max_projs, axes=ax)
 
     # the warm-started bisection carries the previous dual root across
     # iterations (sgp.py:333-340); not under sync_axes, where the sweep
@@ -309,171 +333,178 @@ def _solve_impl(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
 
     # ---- main loop (sgp.py:342-531) ---------------------------------------
     def body(st: SGPState, active: torch.Tensor) -> SGPState:
-        it, x, g, x_tf, fv = st.it, st.x, st.g, st.x_tf, st.fv
-        alpha, tau, beta_p, lr = st.alpha, st.tau, st.beta_p, st.lr
-        lam_dual, dlam_dual = st.lam_dual, st.dlam_dual
-        x_mat = scaling_matrix(x, it)
+        with span('solver.direction'):
+            it, x, g, x_tf, fv = st.it, st.x, st.g, st.x_tf, st.fv
+            alpha, tau, beta_p, lr = st.alpha, st.tau, st.beta_p, st.lr
+            lam_dual, dlam_dual = st.lam_dual, st.dlam_dual
+            x_mat = scaling_matrix(x, it)
 
-        # valpha.at[:-1].set(valpha[1:]): shift left, last entry kept
-        valpha = torch.cat([st.valpha[:, 1:], st.valpha[:, -1:]], dim=1)
-        fold = torch.cat([st.fold[:, 1:], col(fv)], dim=1)
+            # valpha.at[:-1].set(valpha[1:]): shift left, last entry kept
+            valpha = torch.cat([st.valpha[:, 1:], st.valpha[:, -1:]], dim=1)
+            fold = torch.cat([st.fold[:, 1:], col(fv)], dim=1)
 
-        # Descent direction with scaled projection (D = 1/X for proj_type 1)
-        y = x - col(alpha) * x_mat * g
-        if cfg.proj_type == 0:
-            y = torch.clamp_min(y, 0.0)
-        elif use_warm:
-            d_metric = 1.0 / x_mat
-            y, lam_new = project_df_bisect_warm(
-                flux, y * d_metric, d_metric, scaling, sat_level=sat_arg,
-                has_sat=cfg.has_sat_level, axes=ax, lam_prev=lam_dual,
-                dlam_prev=dlam_dual)
-            dlam_dual = torch.where(torch.isfinite(lam_dual),
-                                    (lam_new - lam_dual).abs(), torch.inf)
-            lam_dual = lam_new
-        else:
-            d_metric = 1.0 / x_mat
-            y = proj(y * d_metric, d_metric)
-        d = y - x
+            # Descent direction with scaled projection (D = 1/X for
+            # proj_type 1)
+            y = x - col(alpha) * x_mat * g
+            if cfg.proj_type == 0:
+                y = torch.clamp_min(y, 0.0)
+            elif use_warm:
+                d_metric = 1.0 / x_mat
+                with span('projection'):
+                    y, lam_new = project_df_bisect_warm(
+                        flux, y * d_metric, d_metric, scaling,
+                        sat_level=sat_arg, has_sat=cfg.has_sat_level,
+                        axes=ax, lam_prev=lam_dual, dlam_prev=dlam_dual)
+                dlam_dual = torch.where(torch.isfinite(lam_dual),
+                                        (lam_new - lam_dual).abs(), torch.inf)
+                lam_dual = lam_new
+            else:
+                d_metric = 1.0 / x_mat
+                y = proj(y * d_metric, d_metric)
+            d = y - x
 
-        gd = gsum(d * g, ax)
-        d_tf = A(d)
-        fr = fold.amax(-1)
+            gd = gsum(d * g, ax)
+            d_tf = A(d)
+            fr = fold.amax(-1)
 
-        # Backtracking on the linearized transform (sgp.py:375-449). A
-        # lane's trial count equals the loop's while the lane runs, so the
-        # max_backtracks cap is the loop bound; lanes that stopped in the
-        # outer loop start out done. With beta adaptation a rejected trial
-        # moves the lane's beta along the mean d(betaDiv)/dbeta at that
-        # trial (sgp.py:389-406); the accepted beta feeds g_new. Under
-        # sync_axes the loop runs while a lane of any device group runs
-        # (sgp.py:377-381); a lane that is done does not move.
-        lam = torch.ones(nb, dtype=dt, device=dev)
-        if cfg.max_backtracks == 0:
-            # Line search disabled (sgp.py:427-436): take lam = 1 but still
-            # evaluate the objective there, since fv feeds fold, discr and
-            # stop rules 3/4.
-            fv_new = objective(x_tf + d_tf, x_tf + d_tf + bkg, beta_p)
-        else:
-            fv_new = fv
-            done = ~active
-            for _ in range(cfg.max_backtracks):
-                if not (sync.any((~done).any()) if sync
-                        else bool((~done).any())):
-                    break
-                x_tf_try = x_tf + col(lam) * d_tf
-                den_t = x_tf_try + bkg
-                if beta and cfg.adapt_beta:
-                    fv_t, dbeta = dv.beta_div_with_dbeta(
-                        den_t, gn, beta_p, log_gn, ax, stable=stable)
-                    if ax:
-                        dbeta = ax.all_reduce(dbeta)
-                else:
-                    fv_t = objective(x_tf_try, den_t, beta_p)
-                ok = (fv_t <= fr + gamma * lam * gd) | (lam < 1e-12)
-                run = ~done
-                fv_new = torch.where(run, fv_t, fv_new)
-                lam = torch.where(run & ~ok, lam * bt, lam)
-                if beta and cfg.adapt_beta:
-                    beta_p = torch.where(run & ~ok, beta_p - lr * (dbeta / n),
-                                         beta_p)
-                done = done | ok
-            # Cap-exit fix (sgp.py:441-449): on a max_backtracks exit lam
-            # was shrunk once past the last evaluated trial; undo it so
-            # (x_new, fv_new) stay a consistent pair.
-            lam = torch.where(done, lam, torch.clamp_max(lam / bt, 1.0))
+        with span('solver.linesearch'):
+            # Backtracking on the linearized transform (sgp.py:375-449). A
+            # lane's trial count equals the loop's while the lane runs, so
+            # the max_backtracks cap is the loop bound; lanes that stopped
+            # in the outer loop start out done. With beta adaptation a
+            # rejected trial moves the lane's beta along the mean
+            # d(betaDiv)/dbeta at that trial (sgp.py:389-406); the accepted
+            # beta feeds g_new. Under sync_axes the loop runs while a lane
+            # of any device group runs (sgp.py:377-381); a lane that is
+            # done does not move.
+            lam = torch.ones(nb, dtype=dt, device=dev)
+            if cfg.max_backtracks == 0:
+                # Line search disabled (sgp.py:427-436): take lam = 1 but
+                # still evaluate the objective there, since fv feeds fold,
+                # discr and stop rules 3/4.
+                fv_new = objective(x_tf + d_tf, x_tf + d_tf + bkg, beta_p)
+            else:
+                fv_new = fv
+                done = ~active
+                for _ in range(cfg.max_backtracks):
+                    if not (sync.any((~done).any()) if sync
+                            else host_flag((~done).any())):
+                        break
+                    x_tf_try = x_tf + col(lam) * d_tf
+                    den_t = x_tf_try + bkg
+                    if beta and cfg.adapt_beta:
+                        fv_t, dbeta = dv.beta_div_with_dbeta(
+                            den_t, gn, beta_p, log_gn, ax, stable=stable)
+                        if ax:
+                            dbeta = ax.all_reduce(dbeta)
+                    else:
+                        fv_t = objective(x_tf_try, den_t, beta_p)
+                    ok = (fv_t <= fr + gamma * lam * gd) | (lam < 1e-12)
+                    run = ~done
+                    fv_new = torch.where(run, fv_t, fv_new)
+                    lam = torch.where(run & ~ok, lam * bt, lam)
+                    if beta and cfg.adapt_beta:
+                        beta_p = torch.where(
+                            run & ~ok, beta_p - lr * (dbeta / n), beta_p)
+                    done = done | ok
+                # Cap-exit fix (sgp.py:441-449): on a max_backtracks exit
+                # lam was shrunk once past the last evaluated trial; undo it
+                # so (x_new, fv_new) stay a consistent pair.
+                lam = torch.where(done, lam, torch.clamp_max(lam / bt, 1.0))
 
-        x_new = x + col(lam) * d
-        sk = col(lam) * d
-        x_tf_new = x_tf + col(lam) * d_tf
-        g_new = gradient(x_tf_new + bkg, beta_p)
-        yk = g_new - g
+        with span('solver.update'):
+            x_new = x + col(lam) * d
+            sk = col(lam) * d
+            x_tf_new = x_tf + col(lam) * d_tf
+            g_new = gradient(x_tf_new + bkg, beta_p)
+            yk = g_new - g
 
-        # Scaling matrix + BB steplengths (sgp.py:458-481).
-        x_mat_new = torch.clamp(x_new, x_lb, x_ub)
-        d_metric = 1.0 / x_mat_new
-        sk2 = sk * d_metric
-        yk2 = yk * x_mat_new
-        bk = gsum(sk2 * yk, ax)
-        ck = gsum(yk2 * sk, ax)
-        grow = torch.clamp_max(10.0 * alpha, cfg.alpha_max)
-        alpha1 = torch.where(
-            bk <= 0, grow,
-            torch.clamp(gsum(sk2 * sk2, ax) / torch.where(bk <= 0, 1.0, bk),
-                        cfg.alpha_min, cfg.alpha_max))
-        alpha2 = torch.where(
-            ck <= 0, grow,
-            torch.clamp(ck / torch.where(ck <= 0, 1.0, gsum(yk2 * yk2, ax)),
-                        cfg.alpha_min, cfg.alpha_max))
-        valpha = torch.cat([valpha[:, :-1], col(alpha2)], dim=1)
+            # Scaling matrix + BB steplengths (sgp.py:458-481).
+            x_mat_new = torch.clamp(x_new, x_lb, x_ub)
+            d_metric = 1.0 / x_mat_new
+            sk2 = sk * d_metric
+            yk2 = yk * x_mat_new
+            bk = gsum(sk2 * yk, ax)
+            ck = gsum(yk2 * sk, ax)
+            grow = torch.clamp_max(10.0 * alpha, cfg.alpha_max)
+            alpha1 = torch.where(
+                bk <= 0, grow,
+                torch.clamp(
+                    gsum(sk2 * sk2, ax) / torch.where(bk <= 0, 1.0, bk),
+                    cfg.alpha_min, cfg.alpha_max))
+            alpha2 = torch.where(
+                ck <= 0, grow,
+                torch.clamp(
+                    ck / torch.where(ck <= 0, 1.0, gsum(yk2 * yk2, ax)),
+                    cfg.alpha_min, cfg.alpha_max))
+            valpha = torch.cat([valpha[:, :-1], col(alpha2)], dim=1)
 
-        # min(Valpha) for the first 20 iterations, then tau alternation.
-        early = it <= 20
-        ratio_low = alpha2 / alpha1 < tau
-        alpha_new = torch.where(early | ratio_low, valpha.amin(-1), alpha1)
-        tau_new = torch.where(early, tau,
-                              torch.where(ratio_low, tau * 0.9, tau * 1.1))
+            # min(Valpha) for the first 20 iterations, then tau alternation.
+            early = it <= 20
+            ratio_low = alpha2 / alpha1 < tau
+            alpha_new = torch.where(early | ratio_low, valpha.amin(-1), alpha1)
+            tau_new = torch.where(early, tau,
+                                  torch.where(ratio_low, tau * 0.9, tau * 1.1))
 
-        if beta and cfg.schedule_lr:
-            # epoch = it before the increment, from the call's lr0
-            # (sgp.py:483-486)
-            lr = dv.lr_schedule(lr0, cfg.lr_exp_param, it.to(dt))
+            if beta and cfg.schedule_lr:
+                # epoch = it before the increment, from the call's lr0
+                # (sgp.py:483-486)
+                lr = dv.lr_schedule(lr0, cfg.lr_exp_param, it.to(dt))
 
-        it_new = it + 1
-        lanes = torch.arange(nb, device=dev)
-        slot = (it_new - 1).long().clamp_max(series - 1)
-        discr, err = st.discr, st.err
-        if cfg.track_discr:
-            discr = discr.clone()
-            discr[lanes, slot] = discr_coeff * fv_new
-        if cfg.errflag:
-            err = err.clone()
-            err[lanes, slot] = rel_err(x_new)
+            it_new = it + 1
+            lanes = torch.arange(nb, device=dev)
+            slot = (it_new - 1).long().clamp_max(series - 1)
+            discr, err = st.discr, st.err
+            if cfg.track_discr:
+                discr = discr.clone()
+                discr[lanes, slot] = discr_coeff * fv_new
+            if cfg.errflag:
+                err = err.clone()
+                err[lanes, slot] = rel_err(x_new)
 
-        # Stop rules (sgp.py:496-510).
-        if cfg.stop_criterion in (0, 1):
-            rule_keep = torch.ones(nb, dtype=torch.bool, device=dev)
-        elif cfg.stop_criterion == 2:
-            red = gsum_ff if stable else gsum
-            normstep = red(sk * sk, ax) / red(x_new * x_new, ax)
-            rule_keep = normstep > tol
-        elif cfg.stop_criterion == 3:
-            reldecrease = (fold[:, -1] - fv_new) / fv_new
-            rule_keep = (reldecrease > tol) & (reldecrease >= 0)
-        else:
-            rule_keep = discr_coeff * fv_new > tol
-        keep = rule_keep & (it_new <= cfg.max_iter)
+            # Stop rules (sgp.py:496-510).
+            if cfg.stop_criterion in (0, 1):
+                rule_keep = torch.ones(nb, dtype=torch.bool, device=dev)
+            elif cfg.stop_criterion == 2:
+                red = gsum_ff if stable else gsum
+                normstep = red(sk * sk, ax) / red(x_new * x_new, ax)
+                rule_keep = normstep > tol
+            elif cfg.stop_criterion == 3:
+                reldecrease = (fold[:, -1] - fv_new) / fv_new
+                rule_keep = (reldecrease > tol) & (reldecrease >= 0)
+            else:
+                rule_keep = discr_coeff * fv_new > tol
+            keep = rule_keep & (it_new <= cfg.max_iter)
 
-        if cfg.save:
-            # reconstruction and residual of this iteration (sgp.py:512-515),
-            # a debugging aid for single images. Every running lane writes
-            # the same file names in lane order, so a batch leaves its last
-            # running lane's images.
-            for lane in torch.nonzero(active).flatten().tolist():
-                _dump_iteration(x_new[lane].reshape(shape),
-                                gn[lane].reshape(shape), it_new[lane])
+            if cfg.save:
+                # reconstruction and residual of this iteration
+                # (sgp.py:512-515), a debugging aid for single images. Every
+                # running lane writes the same file names in lane order, so
+                # a batch leaves its last running lane's images.
+                for lane in torch.nonzero(active).flatten().tolist():
+                    _dump_iteration(x_new[lane].reshape(shape),
+                                    gn[lane].reshape(shape), it_new[lane])
 
-        # x stays the accepted iterate; revert-on-exit (sgp.py:568-572) is
-        # applied at the end from x_prev, so the state stays resumable.
-        new = SGPState(keep, it_new, x_new, x, ~rule_keep, g_new, x_tf_new,
-                       fv_new, alpha_new, tau_new, valpha, fold, beta_p, lr,
-                       discr, err, lam_dual, dlam_dual)
-        # Masked commit: lanes that stopped keep their state, as the lanes
-        # of a vmapped while_loop do.
-        return SGPState(*(_where(active, a, b) for a, b in zip(new, st)))
+            # x stays the accepted iterate; revert-on-exit (sgp.py:568-572)
+            # is applied at the end from x_prev, so the state stays
+            # resumable.
+            new = SGPState(keep, it_new, x_new, x, ~rule_keep, g_new,
+                           x_tf_new, fv_new, alpha_new, tau_new, valpha, fold,
+                           beta_p, lr, discr, err, lam_dual, dlam_dual)
+            # Masked commit: lanes that stopped keep their state, as the
+            # lanes of a vmapped while_loop do.
+            return SGPState(*(_where(active, a, b)
+                              for a, b in zip(new, st)))
 
-    while True:
-        active = state.keep
-        if not (sync.any(active.any()) if sync else bool(active.any())):
-            break
-        state = body(state, active)
+    def finish(st: SGPState) -> SGPResult:
+        # The reference returns the previous iterate on exit
+        # (sgp.py:568-572).
+        return SGPResult(
+            x=(st.x_prev * col(scaling)).reshape((nb,) + shape),
+            iters=st.it - 1, discr=st.discr, err=st.err,
+            beta=st.beta_p, fv=st.fv, scaling=scaling)
 
-    # The reference returns the previous iterate on exit (sgp.py:568-572).
-    result = SGPResult(
-        x=(state.x_prev * col(scaling)).reshape((nb,) + shape),
-        iters=state.it - 1, discr=state.discr, err=state.err,
-        beta=state.beta_p, fv=state.fv, scaling=scaling)
-    return result, state
+    return state, body, finish, sync
 
 
 def _resume_state(rstate: SGPState, cfg: SGPConfig, series: int
