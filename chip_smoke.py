@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--from N]
 
-With ``--from N`` (13 to 42) phases 3 to N - 1 are skipped and no result is
+With ``--from N`` (13 to 43) phases 3 to N - 1 are skipped and no result is
 printed: a short run for work on the later phases. ``--rank ...`` is the
 entry of one rank of phases 31-33 (``rank_main``), which the script starts
 itself.
@@ -62,7 +62,8 @@ Phases, one line of output each (or a few):
      and a 9x13 PSF; 'matmul_split' against 'matmul_flat'; the time of an
      operator pair at padded sizes 440, 448, 480 and 512;
  15. the whole-frame path: a 410x410 star field under a 31x31 PSF through
-     ``tpu_sgp_torch.sgp`` and through ``solve`` with the JAX bench's two
+     ``tpu_sgp_torch.sgp`` (cold 'bisect': the guided kernel's launches
+     counted, one a projection) and through ``solve`` with the JAX bench's two
      whole-frame configurations (200 fixed iterations for ms an iteration;
      stop rule 3 at 1e-5 for iterations and wall), with the warm 'bisect'
      projection and with 'pallas' (the kernel on one 168100-pixel row, its
@@ -175,7 +176,16 @@ Phases, one line of output each (or a few):
      it against the plan's, its time beside its bound; float64 4x1024,
      which fits no block, raises ``ValueError`` before any launch; and the
      plan's block of each design against the card's for every shape up to
-     4096 pixels.
+     4096 pixels;
+ 43. the cold guided secant ('bisect') on long rows as one grid kernel:
+     at (1, 168100), float32 and float64, with and without saturation,
+     the route the plan takes by itself, its x against the plain ladder
+     (``_guided_root``) on the card (1e-5 / 1e-12 of max|x|) and both flux
+     errors; then its time (CUDA events) against the plain ladder's, the
+     launches a call of each (the kernel's counter, ``torch.profiler``'s
+     launch calls and device kernels), its bound, and its ptxas line
+     beside K1's grid kernel's. The launches of the guided kernel in the
+     kernels line are phase 15's, in the facade's cold-'bisect' solve.
 
 Then a JSON line of the kernels (K2's entry lists the routes it launched,
 each with its launches, time and bound), the ``nvidia-smi`` line, and last
@@ -1092,7 +1102,7 @@ def phase_k2_shapes(torch, card: str) -> list:
 def count_launches(torch, fn) -> tuple:
     """Kernels the card ran during one call of ``fn`` (``torch.profiler``'s
     device events, memory copies and sets left out) and the host's
-    ``cudaLaunchKernel`` calls in it."""
+    ``cudaLaunchKernel`` and ``cudaLaunchCooperativeKernel`` calls in it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1102,7 +1112,9 @@ def count_launches(torch, fn) -> tuple:
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.name.startswith(('Memcpy', 'Memset'))]
-    host = [e for e in prof.events() if e.name.startswith('cudaLaunchKernel')]
+    host = [e for e in prof.events()
+            if e.name.startswith(('cudaLaunchKernel',
+                                  'cudaLaunchCooperativeKernel'))]
     return len(device), len(host)
 
 
@@ -1174,7 +1186,7 @@ def phase_methods(torch) -> None:
         kernels, host = count_launches(torch, fn)
         print(f'method time ({MAIN_B}, {N_PIX}) float32 has_sat=True '
               f'{method}: {ms:.4f} ms a call, {kernels} kernels on the card '
-              f'({host} cudaLaunchKernel calls)')
+              f'({host} launch calls)')
 
 
 def profile_call(torch, fn) -> tuple:
@@ -1310,6 +1322,97 @@ def phase_long_rows(torch) -> dict:
           f'{k1_bound["bound_ms"]:.5f} ms ({k1_bound["bound_by"]})')
     return dict(max_abs_err=main_err, ms=ms, plain_ms=plain_ms, **k1_bound,
                 library_ms=None)
+
+
+GUIDED_TOL = {'float32': 1e-5, 'float64': 1e-12}
+
+
+def phase_guided_rows(torch) -> dict:
+    """Phase 43: the cold guided secant of 'bisect' as one grid kernel on
+    the whole frame's row, (1, 168100): the plan must route it to the
+    kernel by itself; x against the plain ladder on the card to
+    ``GUIDED_TOL`` of max|x|, both flux errors. Then, float32 and float64
+    without saturation, the kernel's time against the plain ladder's, the
+    launches a call of each (the kernel's counter; the profiler's launch
+    calls and device kernels), and the bound. Prints the guided kernel's
+    ptxas lines beside K1's grid kernel's."""
+    from tpu_sgp_torch.kernels import _build
+    from tpu_sgp_torch.kernels.flux_projection import (guided_plan,
+                                                       guided_route,
+                                                       project_guided_rows)
+    from tpu_sgp_torch.projection import flux_projection as tproj
+    lib = _build.build('flux_projection')
+    report = ptxas_summary(lib.with_name(lib.name + '.log').read_text())
+    resident = occupancy(_build.load_library('flux_projection'),
+                         'flux_projection')
+    print('ptxas guided: ' + '; '.join(
+        f'{k} {v}, {resident.get(k, "?")}' for k, v in report.items()
+        if k.startswith(('project_rows_guided_grid_kernel',
+                         'project_rows_grid_kernel'))))
+    rows, n = LONG_ROWS[0]
+    out, seed = {}, 430
+    for name in ('float32', 'float64'):
+        dtype = getattr(torch, name)
+        blocks, _, capacity = guided_plan(rows, n, dtype, 0)
+        check(guided_route(rows, n, dtype, 'cuda') == 'kernel',
+              f'({rows}, {n}) {name}: the plan routes the row to the kernel')
+        for has_sat in (True, False):
+            seed += 1
+            b, c, dia, cap = projection_case(torch, rows, n, dtype, has_sat,
+                                             'cuda', seed)
+            scaling = torch.ones_like(b)
+            sat = cap if has_sat else None
+            before = project_guided_rows.launches
+            x = tproj.project('bisect', b, c, dia, scaling, sat_level=sat,
+                              has_sat=has_sat)
+            check(project_guided_rows.launches == before + 1,
+                  'the call took the guided kernel')
+            xp = tproj._guided_root(b, c, dia, scaling, sat, has_sat,
+                                    None)[0]
+            torch.cuda.synchronize()
+            rel = float((x - xp).abs().max() / xp.abs().max())
+            flux = float(((x.double().sum(-1) - b) / b).abs().max())
+            flux_p = float(((xp.double().sum(-1) - b) / b).abs().max())
+            print(f'guided long row ({rows}, {n}) {name} has_sat={has_sat}: '
+                  f'kernel ({blocks} blocks of {capacity}) vs plain ladder '
+                  f'max|dx|/max|x|={rel:.3e} (limit {GUIDED_TOL[name]:.0e}) '
+                  f'flux rel err kernel {flux:.3e} plain {flux_p:.3e}')
+            check(bool(torch.isfinite(x).all()), 'finite kernel x')
+            check(rel <= GUIDED_TOL[name], 'guided kernel agrees with plain')
+            check(flux <= FLUX_RTOL[name] and flux <= flux_p + 1e-6,
+                  'guided kernel conserves flux')
+        b, c, dia, _ = projection_case(torch, rows, n, dtype, False, 'cuda',
+                                       439)
+        scaling = torch.ones_like(b)
+        kern = lambda: tproj._guided_root_kernel(b, c, dia, scaling, None,
+                                                 False, None)
+        plain = lambda: tproj._guided_root(b, c, dia, scaling, None, False,
+                                           None)
+        ms = time_ms(torch, kern, reps=50)
+        plain_ms = time_ms(torch, plain, reps=10)
+        ms2 = time_ms(torch, kern, reps=50)
+        before = project_guided_rows.launches
+        kern()
+        counted = project_guided_rows.launches - before
+        k_dev, k_host = count_launches(torch, kern)
+        p_dev, p_host = count_launches(torch, plain)
+        points = 4 + 3 * (tproj.newton_passes(dtype) + 1)
+        size = 4 if name == 'float32' else 8
+        # c and dia read once and x written (the kernel reads dia again
+        # for x, which is not counted); per pixel 5 operations a residual
+        # point, 8 for the bracket and the anchors, 4 for x
+        work = bound(3 * rows * n * size, rows * n * (5 * points + 12),
+                     ops_rate=F32_FLOP_S if size == 4 else F64_FLOP_S)
+        print(f'guided long row time ({rows}, {n}) {name}: kernel {ms:.4f} '
+              f'ms (again {ms2:.4f}), {counted} launch a call (counter), '
+              f'{k_host} launch calls and {k_dev} device kernels in the '
+              f'profiler; plain ladder {plain_ms:.4f} ms, {p_host} launch '
+              f'calls and {p_dev} device kernels in the profiler; bound '
+              f'{work["bound_ms"]:.5f} ms ({work["bound_by"]})')
+        check(counted == 1, 'one launch a call')
+        out[name] = dict(ms=ms, plain_ms=plain_ms, plain_launches=p_host,
+                         **work)
+    return out
 
 
 def frame_inputs():
@@ -1464,26 +1567,37 @@ def phase_operators(torch) -> None:
           'AT(A(x)) by padded size: ' + ', '.join(parts))
 
 
-def phase_frame(torch, card: str) -> int:
+def phase_frame(torch, card: str) -> tuple:
     """Phase 15: the whole-frame path. Returns the launches of K1 (all on
-    the grid path) in one 200-iteration ``solve`` with 'pallas'."""
+    the grid path) in one 200-iteration ``solve`` with 'pallas', and those
+    of the guided kernel and the iterations in one facade ``sgp`` with
+    cold 'bisect'."""
     import tpu_sgp_torch as tsgp
-    from tpu_sgp_torch.kernels.flux_projection import project_rows
+    from tpu_sgp_torch.kernels.flux_projection import (project_guided_rows,
+                                                       project_rows)
     img, psf = frame_inputs()
 
-    # the facade: numpy in, numpy out, the card by default, cold 'bisect'
+    # the facade: numpy in, numpy out, the card by default, cold 'bisect',
+    # whose projection is the guided kernel, once a projection: the
+    # initial one and one an iteration
     kw = dict(init_recon=2, proj_type=1, stop_criterion=3, MAXIT=500,
               tol_convergence=1e-5)
     tsgp.sgp(img, psf, FRAME_BKG, **dict(kw, MAXIT=3))          # warm-up
+    project_guided_rows.launches = 0
     x, iters, discr, times, err = tsgp.sgp(img, psf, FRAME_BKG, **kw)
+    guided = dict(launches=project_guided_rows.launches, iters=int(iters))
     check(isinstance(x, np.ndarray) and x.dtype == np.float32
           and err is None and discr.shape == times.shape == (iters + 1,),
           'sgp returns the reference\'s tuple')
+    check(guided['launches'] == iters + 1, f'the guided kernel ran once a '
+          f'projection ({guided["launches"]} launches in {iters} '
+          f'iterations)')
     flux = check_frame(torch, x, img, 'sgp 410x410')
     print(f'frame sgp 410x410 psf 31x31 float32 (linear, cold bisect, stop '
           f'3 at 1e-5): iters={iters} wall={times[-1]:.4f} s '
-          f'({times[-1] * 1e3 / max(iters, 1):.3f} ms an iteration) flux rel '
-          f'err={flux:.3e} [{card}]')
+          f'({times[-1] * 1e3 / max(iters, 1):.3f} ms an iteration), guided '
+          f'kernel launches={guided["launches"]}, flux rel err={flux:.3e} '
+          f'[{card}]')
 
     launches = None
     for method in ('bisect', 'pallas'):
@@ -1545,7 +1659,7 @@ def phase_frame(torch, card: str) -> int:
     print(f'frame sgp_beta_div 410x410 float32 (linear, cold bisect, beta0 '
           f'1.005, stop 3 at 1e-5): iters={iters} wall={times[-1]:.4f} s '
           f'flux rel err={flux:.3e} [{card}]')
-    return launches
+    return launches, guided
 
 
 def phase_frame_vs_cpu(torch) -> None:
@@ -3925,7 +4039,8 @@ def main() -> int:
                                if first == 40 else None),
                               (41, lambda: phase_distributed_demo(
                                   card, ran_worlds())),
-                              (42, lambda: phase_k2_shapes(torch, card))):
+                              (42, lambda: phase_k2_shapes(torch, card)),
+                              (43, lambda: phase_guided_rows(torch))):
             if number >= first:
                 phase()
         print(f'partial run from phase {first}: no result')
@@ -3950,7 +4065,7 @@ def main() -> int:
     # 13-17
     long_row = phase_long_rows(torch)
     phase_operators(torch)
-    frame_launches = phase_frame(torch, card)
+    frame_launches, frame_guided = phase_frame(torch, card)
     phase_frame_vs_cpu(torch)
     phase_classic_checkpoint(torch)
 
@@ -3991,6 +4106,7 @@ def main() -> int:
     # 42
     shapes = time.perf_counter()
     k2['routes'] += phase_k2_shapes(torch, card)
+    guided = phase_guided_rows(torch)['float32']
     done = time.perf_counter()
     in_worlds = sum(float(w[0].get('examples/demo_wall', 0.0))
                     + float(w[0].get('examples/halo_wall', 0.0))
@@ -4001,7 +4117,8 @@ def main() -> int:
           f'(31-33, with the examples of 37 and 41) '
           f'{examples - meshes:.1f} s, the examples (34-41) '
           f'{shapes - examples:.1f} s and {in_worlds:.1f} s in the worlds, '
-          f'K2\'s shapes (42) {done - shapes:.1f} s, all '
+          f'K2\'s shapes and the guided kernel (42-43) '
+          f'{done - shapes:.1f} s, all '
           f'{done - started:.1f} s')
 
     k1 = {'route': 'cuda', 'source': 'tpu_sgp_torch/csrc/flux_projection.cu',
@@ -4016,6 +4133,10 @@ def main() -> int:
         **serving[4 * SERVE_B]}, {
         'name': 'flux_projection_rank_shard', **k1, **shard}, {
         'name': 'flux_projection_server_shard', **k1, **server_shard}, {
+        'name': 'flux_projection_guided_long_row', 'route': 'cuda',
+        'source': 'tpu_sgp_torch/csrc/flux_projection.cu',
+        'replaces': 'tpu_sgp_torch/projection/flux_projection.py:'
+                    '_guided_root', **frame_guided, **guided}, {
         'name': 'stamp_solver', 'route': 'cuda',
         'source': 'tpu_sgp_torch/csrc/stamp_solver.cu',
         'replaces': 'tpu_sgp/experimental/pallas_batch.py:57', **k2}]}))

@@ -437,3 +437,352 @@ def test_many_long_rows_keep_one_block_a_row_and_a_grid_too_large_raises():
     with pytest.raises(RuntimeError, match='grid path'):
         project_rows(t(b), t(c), t(dia), cap, 10, True, path='grid')
     torch.cuda.synchronize()
+
+
+# ---- 'bisect' on long rows: the guided grid kernel and its route ----------
+
+@pytest.mark.parametrize('rows,n,device,sharded,plan,want', [
+    (1, 168100, 'cpu', False, None, 'plain'),           # CPU tensors
+    (1, 168100, 'cuda', True, (165, 1056), 'plain'),    # under mesh axes
+    (12288, 961, 'cuda', False, (12288, 1056), 'plain'),  # stamps
+    (256, 961, 'cuda', False, (256, 1056), 'plain'),    # a served request
+    (1, 2048, 'cuda', False, (2, 1056), 'plain'),       # K1's block rows
+    (25, 168100, 'cuda', False, (4125, 1056), 'plain'),  # too many blocks
+    (7, 168100, 'cuda', False, (1155, 1155), 'kernel'),  # all fit
+    (1, 168100, 'cuda', False, (165, 1056), 'kernel'),  # one whole frame
+    (1, 2049, 'cuda', False, (3, 1056), 'kernel'),
+])
+def test_guided_route_takes_the_kernel_only_for_few_long_rows_on_a_card(
+        rows, n, device, sharded, plan, want):
+    """The route of a cold 'bisect' projection from the shape alone: the
+    grid kernel for rows above 2048 pixels on a card whose blocks all fit
+    at once; the plain ladder for CPU tensors, mesh axes, stamps and more
+    long rows than the card holds. With a plan (blocks, capacity) given,
+    the rule asks no card."""
+    from tpu_sgp_torch.kernels.flux_projection import guided_route
+    assert guided_route(rows, n, torch.float32, device, sharded=sharded,
+                        plan=plan) == want
+    assert guided_route(rows, n, torch.float16, device, sharded=sharded,
+                        plan=plan) == 'plain'
+
+
+# sha256 (first 16 hex digits) of project('bisect', ...)'s x on seeded rows,
+# as the plain ladder computed it before the kernel route existed
+BISECT_CPU_PINS = {
+    ('float32', False, 5, 300): '9090957b2106ce4c',
+    ('float32', False, 1, 4097): '944acc94ec7901f2',
+    ('float32', True, 5, 300): '4963fcbed766bfa5',
+    ('float32', True, 1, 4097): 'fc0da2f67c21a1b8',
+    ('float64', False, 5, 300): '81c1398de5e0ab80',
+    ('float64', False, 1, 4097): 'f3c18a7c31da6555',
+    ('float64', True, 5, 300): 'd21af46ad2e880a6',
+    ('float64', True, 1, 4097): '9ec9a30f8d7f2d5e',
+}
+
+
+def _long_rows(rows, n, seed=None):
+    """_rows with a frame's flux: a stamp's flux a pixel."""
+    b, c, dia, scaling, sat = _rows(np.random.default_rng(
+        rows * 1000 + n if seed is None else seed), rows, n)
+    grow = max(1.0, n / 961)
+    return b * grow, c, dia, scaling, sat * grow
+
+
+@pytest.mark.parametrize('dtype,has_sat,rows,n', list(BISECT_CPU_PINS))
+def test_bisect_on_cpu_is_bit_equal_to_the_plain_ladder(dtype, has_sat,
+                                                        rows, n):
+    """On CPU tensors, long rows included, project('bisect', ...) is the
+    plain ladder: bit for bit ``_guided_root``'s x and the pinned bytes of
+    its output before the kernel route, with no launch."""
+    import hashlib
+    from tpu_sgp_torch.kernels.flux_projection import project_guided_rows
+    b, c, dia, scaling, sat = _long_rows(rows, n)
+    t = lambda a: torch.as_tensor(a, dtype=getattr(torch, dtype))
+    q = t(sat) if has_sat else None
+    before = project_guided_rows.launches
+    x = tproj.project('bisect', t(b), t(c), t(dia), t(scaling),
+                      sat_level=q, has_sat=has_sat)
+    want = tproj._guided_root(t(b), t(c), t(dia), t(scaling), q, has_sat,
+                              None)[0]
+    assert project_guided_rows.launches == before
+    assert torch.equal(x, want)
+    assert hashlib.sha256(x.numpy().tobytes()).hexdigest()[:16] \
+        == BISECT_CPU_PINS[(dtype, has_sat, rows, n)]
+
+
+def test_bisect_on_cpu_records_no_kernel_span():
+    """A traced 'bisect' projection of a long CPU row and a traced CPU
+    frame solve: projection spans, no projection.kernel span and no guided
+    launch."""
+    from tpu_sgp_torch import observability
+    from tpu_sgp_torch.kernels.flux_projection import project_guided_rows
+    from tpu_sgp_torch.simulate import synthetic_star_field
+    import tpu_sgp_torch
+    b, c, dia, scaling, _ = _long_rows(1, 4097)
+    t = torch.as_tensor
+    img, psf, _ = synthetic_star_field(40, 40, n_stars=4, psf_size=9,
+                                       fwhm=2.0, seed=3)
+    before = project_guided_rows.launches
+    with observability.tracing() as trace:
+        with observability.span('projection'):
+            tproj.project('bisect', t(b), t(c), t(dia), t(scaling))
+        tpu_sgp_torch.sgp(img, psf, 150.0, init_recon=2, proj_type=1,
+                          stop_criterion=1, MAXIT=5, device='cpu')
+    assert trace.get('projection').count >= 7
+    assert trace.get('projection.kernel').count == 0
+    assert project_guided_rows.launches == before
+
+
+def test_guided_kernel_refuses_cpu_tensors():
+    """The guided kernel has no CPU mode: CPU tensors raise before any
+    launch (``project_df_bisect`` sends them to the plain ladder)."""
+    from tpu_sgp_torch.kernels.flux_projection import project_guided_rows
+    b, c, dia, _, _ = _long_rows(1, 4097)
+    t = torch.as_tensor
+    before = project_guided_rows.launches
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        project_guided_rows(t(b), t(c), t(dia), None, 5, False)
+    assert project_guided_rows.launches == before
+
+
+def _both_routes(b, c, dia, scaling, sat, dtype, has_sat):
+    """The guided kernel and the plain ladder on the same card: (x, lam)
+    of each, and the launches the kernel route made."""
+    from tpu_sgp_torch.kernels.flux_projection import project_guided_rows
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device='cuda')
+    args = t(b), t(c), t(dia), t(scaling), t(sat) if has_sat else None
+    before = project_guided_rows.launches
+    got = tproj._guided_root_kernel(*args, has_sat, None)
+    launches = project_guided_rows.launches - before
+    want = tproj._guided_root(*args, has_sat, None)
+    torch.cuda.synchronize()
+    return got, want, launches
+
+
+def _check_routes(got, want, b, dtype):
+    """x within 1e-12 (float64) or 1e-5 (float32) of max|x|; in float32
+    the flux to 1e-4 and within 1e-6 of the plain ladder's gap."""
+    x, xp = got[0].double().cpu(), want[0].double().cpu()
+    assert bool(torch.isfinite(x).all())
+    err = float((x - xp).abs().max() / xp.abs().max())
+    b = torch.as_tensor(b, dtype=torch.float64)
+    gap = float(((x.sum(-1) - b).abs() / b).max())
+    gap_plain = float(((xp.sum(-1) - b).abs() / b).max())
+    if dtype == torch.float64:
+        assert err <= 1e-12, err
+    else:
+        assert err <= 1e-5, err
+        assert gap <= 1e-4 and gap <= gap_plain + 1e-6, (gap, gap_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('has_sat', [False, True])
+@pytest.mark.parametrize('rows,n', [(1, 168100), (1, 4097), (2, 168100)])
+def test_guided_kernel_matches_plain_on_card(dtype, has_sat, rows, n):
+    """The guided grid kernel against the plain ladder on the same card, in
+    one launch; 'auto' takes the kernel for these shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernel has no CPU mode')
+    from tpu_sgp_torch.kernels.flux_projection import (guided_plan,
+                                                       guided_route)
+    assert guided_route(rows, n, dtype, 'cuda') == 'kernel'
+    blocks, scratch, capacity = guided_plan(rows, n, dtype, 0)
+    # 1024 pixels a block
+    assert blocks == rows * -(-n // 1024) <= capacity and scratch > 0
+    b, c, dia, scaling, sat = _long_rows(rows, n)
+    got, want, launches = _both_routes(b, c, dia, scaling, sat, dtype,
+                                       has_sat)
+    assert launches == 1
+    _check_routes(got, want, b, dtype)
+
+
+def _adversarial(case, n, seed):
+    """Rows that stress the ladder: one bright pixel holding nearly all
+    the flux; a cap that clips all but about 0.1 % of the pixels; and a
+    flux just above sum(max(c, 0)/dia), where the root sits next to
+    lam = 0."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(-1.0, 0.3, n)
+    dia = rng.uniform(0.5, 2.0, n)
+    scaling = 1.0
+    if case == 'bright':
+        c[n // 3] = 5e4
+        b = 1e3
+        sat = 2e4
+    elif case == 'clipped':
+        c = rng.normal(0.5, 1.0, n)
+        b = 1e4
+        sat = 1.001 * b / n
+    else:
+        c = rng.normal(0.5, 1.0, n)
+        b = float((np.maximum(c, 0) / dia).sum()) * (1 + 1e-6)
+        sat = 10.0
+    return (np.array([b]), c[None], dia[None], np.array([scaling]),
+            np.array([sat]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('case,has_sat', [('bright', False),
+                                          ('bright', True),
+                                          ('root_at_zero', False),
+                                          ('root_at_zero', True)])
+def test_guided_kernel_adversarial_rows_on_card(dtype, case, has_sat):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernel has no CPU mode')
+    b, c, dia, scaling, sat = _adversarial(case, 168100, 5)
+    got, want, launches = _both_routes(b, c, dia, scaling, sat, dtype,
+                                       has_sat)
+    assert launches == 1
+    _check_routes(got, want, b, dtype)
+
+
+def _kernel_order_sum(x, axes=()):
+    """Row sums in the guided kernel's order (``row_reduce`` in
+    csrc/flux_projection.cu): a thread adds its 4 pixels
+    part * 1024 + tid + 256 j in turn, a warp halves its 32 lanes (the xor
+    shuffles), a block adds its 8 warps in turn, and lane l adds the row's
+    parts l, l + 32, ... in turn before a last halving over the lanes.
+    Pad pixels and parts add 0."""
+    def halve(t):
+        while t.shape[-1] > 1:
+            h = t.shape[-1] // 2
+            t = t[..., :h] + t[..., h:]
+        return t[..., 0]
+
+    def in_turn(t):
+        r = t[..., 0, :]
+        for j in range(1, t.shape[-2]):
+            r = r + t[..., j, :]
+        return r
+
+    lead, n = x.shape[:-1], x.shape[-1]
+    parts = -(-n // 1024)
+    x = torch.nn.functional.pad(x, (0, parts * 1024 - n))
+    threads = in_turn(x.reshape(*lead, parts, 4, 256))
+    warps = halve(threads.reshape(*lead, parts, 8, 32))
+    blocks = in_turn(warps[..., None])[..., 0]
+    m = -(-parts // 32)
+    lanes = in_turn(torch.nn.functional.pad(blocks, (0, m * 32 - parts))
+                    .reshape(*lead, m, 32))
+    return halve(lanes)
+
+
+def test_kernel_order_sum_adds_every_pixel_once():
+    """The test's model of the guided kernel's sums adds each pixel once:
+    exact on integers, and within rounding of a plain sum on a ragged
+    row."""
+    x = torch.arange(3 * 168100, dtype=torch.float64).reshape(3, 168100)
+    assert torch.equal(_kernel_order_sum(x), x.sum(-1))
+    y = torch.rand(2, 5, 4097, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(0))
+    assert torch.allclose(_kernel_order_sum(y), y.sum(-1), rtol=1e-13)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_guided_kernel_nearly_all_clipped_row_on_card(dtype, monkeypatch):
+    """A cap that clips all but about 0.1 % of the pixels. The root is set
+    by the few free pixels against sums over all of them, so another
+    order of the sums moves x further than the other rows' limits (the
+    card's torch.sum against the CPU's: 1.1e-3 of max|x| in float32). So:
+    - the kernel against the plain ladder with its sums in the kernel's
+      order (``_kernel_order_sum``, on the CPU), to 1e-5 (float32) or
+      1e-12 (float64) of max|x|: the kernel's arithmetic, the order aside;
+    - the kernel against the plain ladder on the card, within twice the
+      furthest that a permutation of the pixels moves either of them;
+    - both against the exact projection ('sort' in float64): the kernel
+      no further than twice the plain ladder's furthest over four orders;
+      the flux to 1e-4 (float32) or 1e-12, and x within [0, cap]."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernel has no CPU mode')
+    b, c, dia, scaling, sat = _adversarial('clipped', 168100, 5)
+    n = c.shape[1]
+    t64 = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    exact = tproj.project_df_sort(t64(b), t64(c), t64(dia), t64(scaling),
+                                  t64(sat), True)[0]
+    rel = lambda x, y: float((x - y).abs().max() / y.abs().max())
+    got, _, launches = _both_routes(b, c, dia, scaling, sat, dtype, True)
+    assert launches == 1
+    x = got[0][0].double().cpu()
+
+    def ordered(perm):
+        t = lambda a: torch.as_tensor(a, dtype=dtype)
+        with monkeypatch.context() as m:
+            m.setattr(tproj, 'gsum', _kernel_order_sum)
+            return tproj._guided_root(t(b), t(c[:, perm]), t(dia[:, perm]),
+                                      t(scaling), t(sat), True, None)[0]
+
+    plain, order = [], []
+    for seed in range(4):
+        perm = np.random.default_rng(seed).permutation(n) \
+            if seed else np.arange(n)
+        _, want, _ = _both_routes(b, c[:, perm], dia[:, perm], scaling, sat,
+                                  dtype, True)
+        for runs, y in ((plain, want[0][0]), (order, ordered(perm)[0])):
+            back = torch.empty(n, dtype=torch.float64)
+            back[torch.as_tensor(perm)] = y.double().cpu()
+            runs.append(back)
+    shift = max(rel(r[k], r[0]) for r in (plain, order) for k in (1, 2, 3))
+    limit = 1e-5 if dtype == torch.float32 else 1e-12
+    assert rel(x, order[0]) <= limit, (rel(x, order[0]), limit)
+    assert rel(x, plain[0]) <= 2 * shift, (rel(x, plain[0]), shift)
+    far = max(rel(y, exact) for y in plain)
+    assert rel(x, exact) <= 2 * far, (rel(x, exact), far)
+    assert (x >= 0).all() and (x <= sat[0] * (1 + 2 ** -23)).all()
+    gap = abs(float(x.sum()) / b[0] - 1)
+    assert gap <= (1e-4 if dtype == torch.float32 else 1e-12), gap
+
+
+@pytest.mark.cuda
+def test_guided_route_on_card_and_a_grid_too_large_raises():
+    """On the card: stamps and many long rows keep the plain ladder;
+    forcing the kernel on a grid larger than the card holds raises."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernel has no CPU mode')
+    from tpu_sgp_torch.kernels.flux_projection import guided_route
+    assert guided_route(12288, 961, torch.float32, 'cuda') == 'plain'
+    assert guided_route(1, 168100, torch.float64, 'cuda') == 'kernel'
+    rows, n = 64, 168100
+    assert guided_route(rows, n, torch.float32, 'cuda') == 'plain'
+    b, c, dia, scaling, _ = _long_rows(rows, n)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device='cuda')
+    with pytest.raises(RuntimeError, match='guided projection kernel'):
+        tproj._guided_root_kernel(t(b), t(c), t(dia), t(scaling), None,
+                                  False, None)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_frame_sgp_on_card_through_each_route(monkeypatch):
+    """One whole 410x410 frame through the facade on the card, the guided
+    kernel (one launch and one projection.kernel span a projection) against
+    the plain ladder: iterations within 3 of each other, flux to 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernel has no CPU mode')
+    import tpu_sgp_torch
+    from tpu_sgp_torch import observability
+    from tpu_sgp_torch.kernels.flux_projection import project_guided_rows
+    from tpu_sgp_torch.simulate import synthetic_star_field
+    img, psf, _ = synthetic_star_field(410, 410, n_stars=60, psf_size=31,
+                                       fwhm=3.0, seed=7)
+    flux = float((img - 150.0).sum())
+
+    def solve():
+        return tpu_sgp_torch.sgp(img, psf, 150.0, init_recon=2, proj_type=1,
+                                 stop_criterion=3, tol_convergence=1e-5)
+
+    before = project_guided_rows.launches
+    with observability.tracing() as trace:
+        x, iters = solve()[:2]
+    spans = trace.get('projection').count
+    assert spans > iters
+    assert trace.get('projection.kernel').count == spans
+    assert project_guided_rows.launches - before == spans
+    monkeypatch.setattr(tproj, 'guided_route', lambda *a, **k: 'plain')
+    xp, iters_p = solve()[:2]
+    assert project_guided_rows.launches - before == spans
+    assert abs(int(iters) - int(iters_p)) <= 3, (iters, iters_p)
+    for got in (x, xp):
+        assert abs(float(got.sum(dtype=np.float64)) / flux - 1) <= 1e-4

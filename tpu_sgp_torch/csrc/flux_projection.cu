@@ -51,6 +51,8 @@
 //   a few microseconds each, not bytes or operations.
 // The launcher picks the path from N and the number of rows; none is a
 // fallback for another.
+// Beside K1, the same grid design runs the 'bisect' method's cold guided
+// secant on long rows (project_rows_guided_grid_kernel, below).
 // The TPU version's (rows, 128) padding and sentinel pixels become a bounds
 // check on the ragged edge.
 
@@ -58,7 +60,9 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cfloat>
 #include <cstdio>
+#include <type_traits>
 
 #include "reduce.cuh"
 
@@ -94,6 +98,12 @@ __device__ __forceinline__ float dev_min(float a, float b) {
 }
 __device__ __forceinline__ double dev_min(double a, double b) {
   return fmin(a, b);
+}
+
+// The dtype's machine epsilon, torch.finfo(dtype).eps.
+template <typename T>
+__device__ __forceinline__ T machine_eps() {
+  return sizeof(T) == 4 ? T(FLT_EPSILON) : T(DBL_EPSILON);
 }
 
 // The projected pixel, jnp.minimum(jnp.maximum((c + lam) * inv, 0), cap)
@@ -456,6 +466,280 @@ project_rows_grid_kernel(const T* __restrict__ b, const T* __restrict__ c,
   }
 }
 
+// ---- The guided secant ('bisect') on long rows -----------------------------
+//
+// project_df_bisect's cold ladder, _guided_root in
+// tpu_sgp_torch/projection/flux_projection.py (tpu_sgp/projection/
+// flux_projection.py:538-623), on rows split over the grid as the grid path
+// above splits them. Where the plain version issues about 25 small PyTorch
+// operations a step, about 600 launches a call for one row, this is one
+// launch. Its phases are the plain version's, each ending in one grid-wide
+// reduction of its partials and one grid.sync():
+// - phase 0: the bracket lo = min(-c), hi = max(max(b * dia - c), lo + 1),
+//   and the anchors' max(-c), sum(1/dia), sum(max(c, 0)/dia);
+// - the probe: the residual at 4 points (r(lo) = -b is known);
+// - n_passes main passes and the finish pass: the residual at the 3 sorted
+//   candidates of _candidates, and _ladder_update over the 5-point ladder;
+// then the closing secant, and the last phase writes x.
+// Every block of a row adds the row's partials in one fixed order and then
+// computes the same scalar state, so all of them take the same branches
+// without the host. The residual at lam is sum(min(max(c + lam, 0),
+// cap * dia) * (1/dia)) - b, the plain version's evalr, and x is
+// min(max((c + lam) / dia, 0), cap), its xval. What bounds it is the
+// 3 + n_passes barriers, as it bounds the grid path.
+
+// scratch values a block a phase: phase 0's five reductions
+constexpr int kGuidedSlots = 5;
+// How a slot is reduced, two bits a slot in a phase's ``ops``: slot k is
+// reduced by (ops >> 2k) & 3.
+enum Reduce { kSum = 0, kMin = 1, kMax = 2 };
+
+template <typename T>
+__device__ __forceinline__ T combine(T a, T b, int op) {
+  return op == kSum ? a + b : op == kMin ? (b < a ? b : a) : (b > a ? b : a);
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_reduce(T v, int op) {
+  return op == kSum ? warp_sum(v) : op == kMin ? warp_min(v) : warp_max(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T identity(int op) {
+  return op == kSum ? T(0) : op == kMin ? T(CUDART_INF) : -T(CUDART_INF);
+}
+
+// The K totals of the row's blocks: each thread's v[k] is reduced over its
+// block, written to ``buf`` (laid out [slot][part]), and after the grid
+// barrier warp k reduces slot k over the row's parts in the same order in
+// every block. Returns with the totals in tot[0..K).
+template <typename T, int K, int OPS>
+__device__ __forceinline__ void row_reduce(T (&v)[K], T (*red)[kWarps],
+                                           T* tot, T* buf, int part, int bpr,
+                                           cg::grid_group& grid) {
+  static_assert(K <= kWarps, "one warp adds the partials of one slot");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = warp_reduce(v[k], (OPS >> 2 * k) & 3);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[k][warp] = v[k];
+  }
+  __syncthreads();
+  if (tid < K) {
+    const int op = (OPS >> 2 * tid) & 3;
+    T r = red[tid][0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) r = combine(r, red[tid][w], op);
+    buf[tid * bpr + part] = r;
+  }
+  grid.sync();
+  if (warp < K) {
+    const int op = (OPS >> 2 * warp) & 3;
+    T r = identity<T>(op);
+    for (int j = lane; j < bpr; j += 32)
+      r = combine(r, __ldcg(buf + warp * bpr + j), op);
+    r = warp_reduce(r, op);
+    if (lane == 0) tot[warp] = r;
+  }
+  __syncthreads();
+}
+
+// The ladder's bracket and slope surrogates, _ladder_update's result.
+template <typename T>
+struct Ladder {
+  T lo, hi, r_lo, r_hi, sl_lo, sl_hi;
+};
+
+// _ladder_update over L ascending points q with nondecreasing residuals v:
+// the new lo is the last inner point (1..L-2) with v < 0, else point 0, the
+// new hi the first inner point with v >= 0, else point L-1; the chord
+// slopes of the segments next to them become the slope surrogates, and a
+// side that kept its end point keeps its previous slope.
+template <typename T, int L>
+__device__ __forceinline__ Ladder<T> ladder_update(const T (&q)[L],
+                                                   const T (&v)[L],
+                                                   T sl_lo_prev,
+                                                   T sl_hi_prev) {
+  T slope[L - 1];
+#pragma unroll
+  for (int i = 0; i < L - 1; ++i) {
+    const T dl = q[i + 1] - q[i];
+    slope[i] = dl > T(0) ? (v[i + 1] - v[i]) / dl : T(0);
+  }
+  Ladder<T> s{q[0], q[L - 1], v[0], v[L - 1], sl_lo_prev, sl_hi_prev};
+#pragma unroll
+  for (int i = 1; i <= L - 2; ++i)
+    if (v[i] < T(0)) {
+      s.lo = q[i];
+      s.r_lo = v[i];
+      s.sl_lo = slope[i - 1];
+    }
+#pragma unroll
+  for (int i = L - 2; i >= 1; --i)
+    if (v[i] >= T(0)) {
+      s.hi = q[i];
+      s.r_hi = v[i];
+      s.sl_hi = slope[i];
+    }
+  return s;
+}
+
+// _candidates: the endpoint chord, Newton from hi (or lo + w/16 where it
+// leaves the bracket), and the midpoint in a main pass or Newton from lo in
+// the finish pass; sorted, and clipped into [lo + eps w, hi - eps w].
+template <typename T>
+__device__ __forceinline__ void candidates(const Ladder<T>& s, bool with_mid,
+                                           T (&p)[3]) {
+  const T eps = machine_eps<T>();
+  const T w = s.hi - s.lo;
+  const T mid = s.lo + T(0.5) * w;
+  const T den = s.r_hi - s.r_lo;
+  const T chord = den > T(0) ? s.lo - s.r_lo * w / den : mid;
+  const T nh_raw = s.sl_hi > T(0) ? s.hi - s.r_hi / s.sl_hi : mid;
+  const T nh = nh_raw > s.lo && nh_raw < s.hi ? nh_raw : s.lo + w / T(16);
+  const T third = with_mid || !(s.sl_lo > T(0)) ? mid
+                                                 : s.lo - s.r_lo / s.sl_lo;
+  const T a = dev_min(chord, nh), b2 = dev_max(chord, nh);
+  const T srt[3] = {dev_min(a, third), dev_min(b2, dev_max(a, third)),
+                    dev_max(b2, third)};
+  const T eps_w = eps * w;
+  const T lo_c = s.lo + eps_w, hi_c = s.hi - eps_w;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) p[k] = dev_min(dev_max(srt[k], lo_c), hi_c);
+}
+
+// Block blockIdx.x serves pixels [part * PER * kThreads, ...) of row
+// blockIdx.x / bpr, i = base + tid + j * kThreads for j < PER, holding c,
+// 1/dia and cap * dia in registers. Phase p writes plane p & 1 of
+// ``scratch``, laid out [plane][row][slot][part]; as in the grid path, a
+// block writes phase p + 2 only after the barrier of phase p + 1. The first
+// block of a row writes the row's root to lam.
+// At least 3 blocks an SM: unbounded, float64 takes 93 registers, 2 blocks
+// an SM, and two whole frames (330 blocks) would not fit on the card at
+// once; bounded, 80 registers and a few spilled bytes. Float32 then takes
+// 72 registers, 3 blocks an SM (48 and 5 unbounded).
+template <typename T, int PER>
+__global__ void __launch_bounds__(kThreads, 3)
+project_rows_guided_grid_kernel(const T* __restrict__ b,
+                                const T* __restrict__ c,
+                                const T* __restrict__ dia,
+                                const T* __restrict__ cap, T* __restrict__ out,
+                                T* __restrict__ lam_out, T* scratch, int rows,
+                                int n, int n_passes, int has_sat, int bpr) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ T red[kGuidedSlots][kWarps];
+  __shared__ T tot[kGuidedSlots];
+
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x / bpr;
+  const int part = blockIdx.x - row * bpr;
+  const size_t off = static_cast<size_t>(row) * n;
+  const int base = part * (PER * kThreads);
+  const T brow = b[row];
+  const T caprow = has_sat ? cap[row] : T(CUDART_INF);
+  const size_t plane = static_cast<size_t>(rows) * kGuidedSlots * bpr;
+  T* const mine = scratch + static_cast<size_t>(row) * kGuidedSlots * bpr;
+  int phase = 0;
+  auto buf = [&]() { return mine + (phase++ & 1) * plane; };
+
+  // Phase 0: pixels, the bracket and the anchors. Pad pixels hold c = 0,
+  // 1/dia = 0 and cap * dia = 0, so they add 0 to every residual.
+  T cv[PER], inv[PER], top[PER];
+  T v0[kGuidedSlots] = {T(CUDART_INF), -T(CUDART_INF), -T(CUDART_INF), T(0),
+                        T(0)};
+  constexpr int kOps0 = kMin | kMax << 2 | kMax << 4 | kSum << 6 | kSum << 8;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = base + tid + j * kThreads;
+    cv[j] = T(0);
+    inv[j] = T(0);
+    top[j] = T(0);
+    if (i < n) {
+      const T ci = c[off + i], di = dia[off + i];
+      cv[j] = ci;
+      inv[j] = T(1) / di;
+      top[j] = has_sat ? caprow * di : T(CUDART_INF);
+      const T neg = -ci;
+      const T up = brow * di - ci;
+      v0[0] = neg < v0[0] ? neg : v0[0];
+      v0[1] = up > v0[1] ? up : v0[1];
+      v0[2] = neg > v0[2] ? neg : v0[2];
+      v0[3] += inv[j];
+      v0[4] += dev_max(ci, T(0)) * inv[j];
+    }
+  }
+  row_reduce<T, kGuidedSlots, kOps0>(v0, red, tot, buf(), part, bpr, grid);
+  const T lo = tot[0];
+  const T hi = dev_max(tot[1], lo + T(1));
+  const T anl_hi = tot[2] + brow / tot[3];
+  const T anl_lo = (brow - tot[4]) / tot[3];
+
+  // The residual sum(x) - b at K points, over the whole row.
+  auto residuals = [&](const auto& lam, auto& r) {
+    constexpr int K = std::extent_v<std::remove_reference_t<decltype(r)>>;
+    T sum[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) sum[k] = T(0);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        sum[k] += dev_min(dev_max(cv[j] + lam[k], T(0)), top[j]) * inv[j];
+    }
+    row_reduce<T, K, kSum>(sum, red, tot, buf(), part, bpr, grid);
+#pragma unroll
+    for (int k = 0; k < K; ++k) r[k] = tot[k] - brow;
+  };
+
+  // The probe: the anchors, the midpoint and hi.
+  const T eps = machine_eps<T>();
+  Ladder<T> s;
+  {
+    const T w = hi - lo;
+    const T eps_w = eps * w;
+    const T ql = dev_min(dev_max(anl_lo, lo + eps_w), hi - eps_w);
+    const T qh = dev_min(dev_max(anl_hi, ql), hi - eps_w);
+    const T mid = lo + T(0.5) * w;
+    T pts[4] = {dev_min(ql, mid), dev_min(qh, dev_max(ql, mid)),
+                dev_max(qh, mid), hi};
+    T r[4];
+    residuals(pts, r);
+    const T q[5] = {lo, pts[0], pts[1], pts[2], pts[3]};
+    const T v[5] = {-brow, r[0], r[1], r[2], r[3]};
+    s = ladder_update<T, 5>(q, v, T(0), T(0));
+  }
+
+  // The main passes, then the finish pass.
+  for (int pass = 0; pass <= n_passes; ++pass) {
+    const bool finish = pass == n_passes;
+    T pts[3], r[3];
+    candidates(s, !finish, pts);
+    residuals(pts, r);
+    const T q[5] = {s.lo, pts[0], pts[1], pts[2], s.hi};
+    const T v[5] = {s.r_lo, r[0], r[1], r[2], s.r_hi};
+    s = finish ? ladder_update<T, 5>(q, v, T(0), T(0))
+               : ladder_update<T, 5>(q, v, s.sl_lo, s.sl_hi);
+  }
+
+  // The secant inside the tightest sign-changing segment.
+  const T den = s.r_hi - s.r_lo;
+  const T lam = den > T(0) ? dev_min(dev_max(s.lo - s.r_lo * (s.hi - s.lo)
+                                                            / den,
+                                             s.lo),
+                                     s.hi)
+                           : s.hi;
+  if (part == 0 && tid == 0) lam_out[row] = lam;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = base + tid + j * kThreads;
+    if (i < n) {
+      const T x = dev_max((cv[j] + lam) / dia[off + i], T(0));
+      out[off + i] = has_sat ? dev_min(caprow, x) : x;
+    }
+  }
+}
+
 // The kernel for rows of n pixels and its grid: the warp path for
 // n <= kWarpRowMax<T>, else the block path.
 template <typename T>
@@ -545,6 +829,9 @@ int launch(const void* b, const void* c, const void* dia, const void* cap,
     err = cudaLaunchCooperativeKernel(
         reinterpret_cast<void*>(project_rows_grid_kernel<T, kGridPer>),
         dim3(rows * bpr), dim3(kThreads), args, 0, s);
+    // a refused launch also sets the runtime's last error: read it here, or
+    // the next launch's check would report it as its own
+    if (err != cudaSuccess) cudaGetLastError();
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
   }
   const Plan<T> p = plan<T>(n, rows);
@@ -553,9 +840,55 @@ int launch(const void* b, const void* c, const void* dia, const void* cap,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of the guided kernel that the device holds at once.
+template <typename T>
+cudaError_t guided_capacity(int device, int* blocks) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, project_rows_guided_grid_kernel<T, kGridPer>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *blocks = per_sm * sms;
+  return err;
+}
+
+template <typename T>
+int launch_guided(const void* b, const void* c, const void* dia,
+                  const void* cap, void* out, void* lam, void* scratch,
+                  int rows, int n, int n_passes, int has_sat, int device,
+                  void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* bp = static_cast<const T*>(b);
+  const T* cp = static_cast<const T*>(c);
+  const T* dp = static_cast<const T*>(dia);
+  const T* capp = static_cast<const T*>(cap);
+  T* op = static_cast<T*>(out);
+  T* lp = static_cast<T*>(lam);
+  T* sp = static_cast<T*>(scratch);
+  int bpr = (n + kGridChunk - 1) / kGridChunk;
+  void* args[] = {&bp, &cp,   &dp, &capp,     &op,      &lp, &sp,
+                  &rows, &n, &n_passes, &has_sat, &bpr};
+  // cooperative, as the grid path: a grid that is not all resident at once
+  // is refused (cudaErrorCooperativeLaunchTooLarge), never hung
+  const cudaError_t launched = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(project_rows_guided_grid_kernel<T, kGridPer>),
+      dim3(rows * bpr), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (launched != cudaSuccess) cudaGetLastError();  // as the grid path
+  return static_cast<int>(launched != cudaSuccess ? launched
+                                                  : cudaGetLastError());
+}
+
 template <typename T>
 int occupancy(int n, char* name, int len, int* blocks) {
   const char type = sizeof(T) == 4 ? 'f' : 'd';
+  if (n == -2) {
+    snprintf(name, len, "project_rows_guided_grid_kernel<%c,%d>", type,
+             kGridPer);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, project_rows_guided_grid_kernel<T, kGridPer>, kThreads, 0));
+  }
   if (n < 0) {
     snprintf(name, len, "project_rows_grid_kernel<%c,%d>", type, kGridPer);
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -616,15 +949,54 @@ extern "C" int tpu_sgp_project_rows_plan(int rows, int n, int is_f64,
   return static_cast<int>(err);
 }
 
+// The guided secant on long rows (project_rows_guided_grid_kernel): the
+// same pointers as above, lam a (rows,) output of the roots, cap read only
+// when has_sat (it may be null otherwise), scratch of the elements that
+// tpu_sgp_project_guided_plan asks for, and n_passes main passes. Returns
+// the launch's cudaError_t (0 on success).
+extern "C" int tpu_sgp_project_guided_rows_f32(
+    const void* b, const void* c, const void* dia, const void* cap, void* out,
+    void* lam, void* scratch, int rows, int n, int n_passes, int has_sat,
+    int device, void* stream) {
+  return launch_guided<float>(b, c, dia, cap, out, lam, scratch, rows, n,
+                              n_passes, has_sat, device, stream);
+}
+
+extern "C" int tpu_sgp_project_guided_rows_f64(
+    const void* b, const void* c, const void* dia, const void* cap, void* out,
+    void* lam, void* scratch, int rows, int n, int n_passes, int has_sat,
+    int device, void* stream) {
+  return launch_guided<double>(b, c, dia, cap, out, lam, scratch, rows, n,
+                               n_passes, has_sat, device, stream);
+}
+
+// What a guided launch of (rows, n) needs: ``blocks`` its grid,
+// ``scratch`` its elements of scratch, and ``capacity`` the blocks of the
+// kernel that the device holds at once (the launch fits if blocks <=
+// capacity). Returns the cudaError_t of the device queries.
+extern "C" int tpu_sgp_project_guided_plan(int rows, int n, int is_f64,
+                                           int device, int* blocks,
+                                           long long* scratch,
+                                           int* capacity) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int bpr = (n + kGridChunk - 1) / kGridChunk;
+  *blocks = rows * bpr;
+  *scratch = 2LL * rows * kGuidedSlots * bpr;
+  err = is_f64 ? guided_capacity<double>(device, capacity)
+               : guided_capacity<float>(device, capacity);
+  return static_cast<int>(err);
+}
+
 // Instantiation i of the kernels (float32 then float64, each at the
 // largest n it takes: 32 .. 1024 the warp path in float32, up to 512 in
-// float64, the block path above, and last the grid path): its name, that n
-// (0: any), and its resident blocks an SM. Returns -1 past the last, else
-// the cudaError_t.
+// float64, the block path above, then the grid path and last the guided
+// secant's grid kernel): its name, that n (0: any), and its resident
+// blocks an SM. Returns -1 past the last, else the cudaError_t.
 extern "C" int tpu_sgp_flux_projection_occupancy(int i, int device,
                                                  char* name, int len, int* n,
                                                  int* blocks) {
-  static const int kSizes[] = {32, 64, 128, 256, 512, 1024, 2048, 0, -1};
+  static const int kSizes[] = {32, 64, 128, 256, 512, 1024, 2048, 0, -1, -2};
   constexpr int kCount = sizeof(kSizes) / sizeof(kSizes[0]);
   if (i < 0 || i >= 2 * kCount) return -1;
   const cudaError_t err = cudaSetDevice(device);

@@ -17,6 +17,11 @@ whose trip count differs per lane (warm bisect, 'secant') keep a per-lane
 mask, as a vmapped ``while_loop`` freezes a lane that has finished, and ask
 the host once a trip whether any lane still runs.
 
+On a card, 'bisect' on a few rows above 2048 pixels (a whole frame) runs
+as one launch of a grid kernel with the same schedule
+(``kernels.flux_projection.project_guided_rows``); the route comes from
+the shape (``guided_route``), and everything else keeps the plain ladder.
+
 ``axes`` (an ``ops.mesh.MeshAxes``) projects an image sharded over mesh
 axes, as the JAX functions' ``axes`` do: every global quantity (the bracket,
 the anchors, each residual) is one collective over the axes, so every rank
@@ -30,8 +35,9 @@ import math
 
 import torch
 
-from ..kernels.flux_projection import project_rows
-from ..observability import host_flag
+from ..kernels.flux_projection import (guided_route, project_guided_rows,
+                                       project_rows)
+from ..observability import host_flag, span
 from ..ops.reduce import gmax, gmin, gsum
 
 METHODS = ('bisect', 'section', 'sort', 'secant', 'pallas')
@@ -336,15 +342,40 @@ def _guided_root(b, c, dia, scaling, sat_level, has_sat, n_iters, axes=()):
     return rows.xval(lam), lam
 
 
+def _guided_root_kernel(b, c, dia, scaling, sat_level, has_sat, n_iters):
+    """``_guided_root`` as one launch of the guided grid kernel
+    (``kernels.flux_projection.project_guided_rows``), the same schedule:
+    returns ``(x, lam)``."""
+    s_main = newton_passes(c.dtype) if n_iters is None else int(n_iters)
+    b = _per_row(b, c).contiguous()
+    dia = torch.as_tensor(dia, dtype=c.dtype, device=c.device
+                          ).expand_as(c).contiguous()
+    cap = _cap(sat_level, scaling, c).contiguous() if has_sat else None
+    with span('projection.kernel'):
+        return project_guided_rows(b, c.contiguous(), dia, cap, s_main,
+                                   has_sat)
+
+
 def project_df_bisect(b, c, dia, scaling, sat_level=None,
                       has_sat: bool | None = None,
                       n_iters: int | None = None, axes=()) -> torch.Tensor:
     """Guided-secant sectioning on the dual variable, the JAX package's
     default projection (``flux_projection.py:492-535``): a static schedule
     of a probe pass (4 points), ``newton_passes`` main passes and a finish
-    pass (3 points each), all evaluated as (B, K, N) broadcasts."""
+    pass (3 points each).
+
+    ``kernels.flux_projection.guided_route`` picks the route from the
+    shape alone: one launch of the guided grid kernel
+    (``_guided_root_kernel``) for a few rows above 2048 pixels on a card (a
+    whole frame); the plain ``_guided_root``, every step a few (B, K, N)
+    broadcasts in PyTorch, for CPU tensors, under mesh ``axes`` and for
+    short rows."""
     if has_sat is None:
         has_sat = sat_level is not None
+    if guided_route(c.shape[0], c.shape[-1], c.dtype, c.device,
+                    sharded=bool(axes)) == 'kernel':
+        return _guided_root_kernel(b, c, dia, scaling, sat_level, has_sat,
+                                   n_iters)[0]
     return _guided_root(b, c, dia, scaling, sat_level, has_sat, n_iters,
                         axes)[0]
 
