@@ -16,32 +16,67 @@ under it; a number that is not finite is over):
   answer for the same inputs, solved in float64 to its own stop rule. The
   limit is the cell's, set between the program's readings and the
   control's (``PERF.md``).
+
+The reference is ``sgpbench/reference/<stem>.py``, the stem named by the
+configuration's ``reference`` key, ``sgp_plain`` where it has none. A
+reference module keeps this contract:
+
+- ``KNOWN``: the settings it solves at one value only (a configuration
+  that gives another value is refused by ``solve``);
+- ``DEFAULTS``: the settings it takes, each with its default;
+- ``TAKES`` (optional): the other configuration keys it reads, by default
+  ``('max_iter', 'tol_convergence')``;
+- ``solve(gn, psf, bkg, settings, *, flux, sat, control) -> (x, iters)``
+  on a (B, H, W) batch that shares one PSF, ``settings`` the
+  configuration's values of the keys above, in float64 unless a
+  ``control`` asks for a lower precision.
 """
 from __future__ import annotations
 
+import importlib.util
 import os
-import sys
+import re
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from reference import sgp_plain  # noqa: E402
+REFERENCES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'reference')
+TAKES = ('max_iter', 'tol_convergence')
+STEM = re.compile(r'^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$')
 
 # the lanes the reference solves at once
 BLOCK_PIXELS = 1 << 20
 
 
-def settings(config: dict) -> dict:
-    """The solver settings the reference takes from a configuration."""
-    keys = set(sgp_plain.KNOWN) | set(sgp_plain.DEFAULTS) | {
-        'max_iter', 'tol_convergence'}
+def reference_module(config: dict):
+    """The module of the reference that ``config`` names, loaded by its
+    path (a stem with no file is an error, never ``sgp_plain``)."""
+    stem = config.get('reference', 'sgp_plain')
+    if not STEM.match(stem):
+        raise ValueError(f'the reference {stem!r} is not a file name')
+    path = os.path.join(REFERENCES, stem + '.py')
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f'the configuration names the reference '
+                                f'{stem!r}: no file {path}')
+    spec = importlib.util.spec_from_file_location(
+        'sgpbench_reference_' + stem.replace('.', '_'), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def settings(config: dict, ref) -> dict:
+    """The solver settings the reference ``ref`` takes from a
+    configuration."""
+    keys = (set(ref.KNOWN) | set(ref.DEFAULTS)
+            | set(getattr(ref, 'TAKES', TAKES)))
     return {k: config[k] for k in keys if k in config}
 
 
-def reference(sample: dict, config: dict, device: str, control=None):
-    """The reference's answers (a float64 array) for the lanes of one
-    sample, in blocks of lanes."""
+def reference(ref, sample: dict, config: dict, device: str, control=None):
+    """The answers (a float64 array) of the reference ``ref`` for the
+    lanes of one sample, in blocks of lanes."""
     gn = np.asarray(sample['gn'], np.float64)
     lanes, h, w = gn.shape
     step = max(1, BLOCK_PIXELS // (h * w))
@@ -50,9 +85,9 @@ def reference(sample: dict, config: dict, device: str, control=None):
         blk = slice(i, i + step)
         t = lambda a: torch.as_tensor(np.asarray(a, np.float64)[blk],
                                       device=device)
-        x, _ = sgp_plain.solve(
+        x, _ = ref.solve(
             t(gn), torch.as_tensor(sample['psf'], dtype=torch.float64),
-            t(sample['bkg']), settings(config),
+            t(sample['bkg']), settings(config, ref),
             flux=None if sample['flux'] is None else t(sample['flux']),
             sat=config['sat_level'] if config['has_sat_level'] else None,
             control=control)
@@ -97,15 +132,16 @@ def compare(cell: dict, config: dict, answers: dict, device: str,
     (L, H, W). ``control`` replaces the program's ``x`` by the reference
     computed in that lower precision (the control of ``PERF.md``), whose
     fluxes are then those of the sample's lanes."""
+    ref = reference_module(config)
     gaps = []
     sums, fluxes = answers['sums'], answers['fluxes']
     if control is not None:
         sums, fluxes = [], []
     for sample in answers['samples']:
-        x_ref = reference(sample, config, device)
+        x_ref = reference(ref, sample, config, device)
         x = sample['x']
         if control is not None:
-            x = reference(sample, config, device, control)
+            x = reference(ref, sample, config, device, control)
             sums.append(x.sum(axis=(1, 2)))
             fluxes.append(target_flux(sample))
         gaps.append(x_gaps(x, x_ref))

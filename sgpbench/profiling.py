@@ -3,9 +3,11 @@ reduced to the device's busy time, its kernel launches and a breakdown.
 
 The busy time is the union of the device's activity intervals (kernels,
 copies, sets), so that intervals that overlap count once. Idle gaps are the
-stretches between them, each named by the benchmark's own host span that
-was open at its middle (``span``) and by the host operation running then,
-where the profiler saw one.
+stretches between them, each named at its middle as
+``<span>/<program span>:<op>``: the benchmark's own host span open then
+(``call``), the program's innermost span open then (``solver.linesearch``;
+``-`` for none) and the outermost host operation running then
+(``aten::sub``; ``python`` for none).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import bisect
 import time
 
 SPAN_PREFIX = 'sgpbench.'
+PROGRAM_PREFIX = 'tpu_sgp_torch.'
 
 
 def span(name: str):
@@ -118,19 +121,21 @@ def reduce(prof, window_s: float, calls: int, iters: int):
             device.append((tr.start, tr.end))
             if not e.name.startswith(('Memcpy', 'Memset')):
                 kernels += 1
-        elif e.name.startswith(SPAN_PREFIX) or e.name.startswith('aten::'):
+        elif e.name.startswith((SPAN_PREFIX, PROGRAM_PREFIX, 'aten::')):
             host.append((tr.start, tr.end, e.name))
     busy = union(device)
     busy_us = sum(b - a for a, b in busy)
 
     # idle gaps inside the profiled stretch, named by what the host did
     spans = _outermost(h for h in host if h[2].startswith(SPAN_PREFIX))
-    ops = _outermost(h for h in host if not h[2].startswith(SPAN_PREFIX))
+    ops = _outermost(h for h in host if h[2].startswith('aten::'))
+    mids = [0.5 * (a + b) for (_, a), (b, _) in zip(busy, busy[1:])]
+    inner = _innermost(((a, b, n[len(PROGRAM_PREFIX):]) for a, b, n in host
+                        if n.startswith(PROGRAM_PREFIX)), mids, '-')
     gaps = {}
-    for (_, a), (b, _) in zip(busy, busy[1:]):
-        mid = 0.5 * (a + b)
+    for (_, a), (b, _), mid, prog in zip(busy, busy[1:], mids, inner):
         name = _at(spans, mid, SPAN_PREFIX + 'outside')[len(SPAN_PREFIX):]
-        key = f'{name}:{_at(ops, mid, "python")}'
+        key = f'{name}/{prog}:{_at(ops, mid, "python")}'
         gaps[key] = gaps.get(key, 0.0) + (b - a) / 1e6
 
     top = sorted((e for e in prof.key_averages()
@@ -153,6 +158,22 @@ def _outermost(intervals):
     for a, b, name in sorted(intervals):
         if not out or a >= out[-1][1]:
             out.append((a, b, name))
+    return out
+
+
+def _innermost(intervals, times, default):
+    """For each of the ascending ``times``, the name of the interval of
+    ``intervals`` (start, end, name) open then that started last (the
+    innermost, where they nest), else ``default``."""
+    # by start, and of two that start together the outer one first
+    todo = sorted(intervals, key=lambda h: (h[0], -h[1]), reverse=True)
+    stack, out = [], []
+    for t in times:
+        while todo and todo[-1][0] <= t:
+            stack.append(todo.pop())
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        out.append(stack[-1][2] if stack else default)
     return out
 
 

@@ -70,6 +70,9 @@ def load_run(root: str):
     """The copy's ``run.py`` as a module, the program importable."""
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
+    # the run imports the copy's own check.py, which finds the references
+    # beside it, and not one that a run of another copy left imported
+    sys.modules.pop('check', None)
     spec = importlib.util.spec_from_file_location(
         'sgpbench_run_copy', os.path.join(root, 'sgpbench', 'run.py'))
     mod = importlib.util.module_from_spec(spec)

@@ -8,7 +8,9 @@ Workload parameters (``sgpbench/workloads/<cell>.json``):
   PSF, ``tpu_sgp_torch.parallel.batch.restore_stamps``) or ``sgp`` (one
   image through the reference-compatible facade ``tpu_sgp_torch.sgp``).
 - ``call``: keyword arguments of the entry besides the configuration's
-  (``flatten``, ``phase1_iters``, ``tail_bucket``).
+  (``flatten``, ``phase1_iters``, ``tail_bucket``). The configuration's
+  own are its ``SGPConfig`` fields, its fluxes and saturation level, and
+  the deployment's ``beta0`` and ``lr0`` where it gives them.
 - ``inputs``: ``kind`` ``stamps`` (``batch`` stamps a call, ``pool``
   batches) or ``fields`` (``lanes`` fields a call, ``calls`` calls' worth).
   Each input comes from the run's seed, or, with ``family_seed``, from a
@@ -40,6 +42,16 @@ FACADE = {'max_iter': 'MAXIT', 'stop_criterion': 'stop_criterion',
           'tol_convergence': 'tol_convergence', 'init_recon': 'init_recon',
           'proj_type': 'proj_type', 'alpha_init': 'alpha',
           'dtype': 'dtype'}
+
+
+# the deployment's arguments of the entry that are neither an ``SGPConfig``
+# field nor traffic: beta-SGP's starting beta and learning rate
+DEPLOYMENT = ('beta0', 'lr0')
+
+
+def deployment(config: dict) -> dict:
+    """The ``DEPLOYMENT`` keywords the configuration gives."""
+    return {k: config[k] for k in DEPLOYMENT if k in config}
 
 
 def sgp_config(config: dict):
@@ -105,18 +117,19 @@ def make_entry(run):
         from tpu_sgp_torch.parallel.batch import restore_stamps
         sc = sgp_config(cfg)
         sat = float(cfg['sat_level']) if cfg['has_sat_level'] else 0.0
+        deploy = deployment(cfg)
 
         def call(item):
             res = restore_stamps(item['gn'], item['psf'], item['bkg'], sc,
                                  fluxes=item['flux'], sat_level=sat,
-                                 device=dev, **cell.get('call', {}))
+                                 device=dev, **deploy, **cell.get('call', {}))
             return res.x, res.iters
         return call
     if cell['entry'] == 'sgp':
         import tpu_sgp_torch
-        if cfg['has_flux'] or cfg['has_sat_level']:
-            raise ValueError('the sgp entry here passes no flux and no '
-                             'saturation level')
+        if cfg['has_flux'] or cfg['has_sat_level'] or deployment(cfg):
+            raise ValueError('the sgp entry here passes no flux, no '
+                             'saturation level and no beta0 or lr0')
         kw = {FACADE[k]: cfg[k] for k in FACADE if k in cfg}
 
         def call(item):

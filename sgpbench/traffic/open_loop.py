@@ -14,7 +14,8 @@ Workload parameters (``sgpbench/workloads/<cell>.json``):
   optional ``burst`` (``factor``, ``on_s``, ``period_s``) raises the rate
   ``factor``-fold for ``on_s`` seconds of every ``period_s`` at the same
   mean rate.
-- ``session``: keyword arguments of ``RestorationSession``; ``server``:
+- ``session``: keyword arguments of ``RestorationSession`` besides the
+  configuration's (as the closed loop's ``call``); ``server``:
   ``max_batch``, ``max_delay_s`` of the server and ``warm_max_batch``, the
   largest batch whose bucket set-up warms.
 - ``grace_s``: how long past the window's close answers are waited for; a
@@ -33,7 +34,7 @@ import numpy as np
 
 import profiling
 from traffic import data
-from traffic.closed_loop import sgp_config
+from traffic.closed_loop import deployment, sgp_config
 
 
 def mix(cell: dict, seconds: float, rng, rate=None):
@@ -84,7 +85,7 @@ class Service:
         self.session = RestorationSession(
             self.psf, sgp_config(cfg), stamp_shape=(size, size),
             sat_level=float(cfg['sat_level']), device=run.device,
-            **cell.get('session', {}))
+            **deployment(cfg), **cell.get('session', {}))
         srv = cell['server']
         self.session.warmup(max_batch=int(srv['warm_max_batch']))
         self.server = MicroBatchServer(self.session,
