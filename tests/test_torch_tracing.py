@@ -272,3 +272,129 @@ def test_host_flag_and_traced_keep_what_they_wrap():
         assert obs.host_flag(torch.tensor([1.0]).bool()) is True
     sync = t.get('sync')
     assert sync.count == 1 and sync.self_s == sync.total_s > 0
+
+
+def _beta_cfg(**kw):
+    return _cfg(**dict(dict(divergence='beta', adapt_beta=True,
+                            schedule_lr=True, projection_method='section'),
+                       **kw))
+
+
+def _restore_beta(cfg=None, b=8, **kw):
+    return _restore(cfg or _beta_cfg(), b=b, beta0=1.005, lr0=1e-3, **kw)
+
+
+def test_beta_solve_spans_its_objective_and_gradient_and_counts_rows():
+    """One beta solve without compaction: a ``beta.objective`` span for
+    set-up's evaluation and each line-search trial (a trial follows each
+    of the line search's flag reads but the one that ends the trip), a
+    ``beta.gradient`` span for set-up's and each update's, and
+    ``beta.rows`` the batch's rows in every objective pass, inside it."""
+    b = 8
+    with obs.tracing() as t:
+        res = _restore_beta(b=b)
+    names = t.by_name()
+    paths = t.by_path()
+    trips = int(res.iters.max())
+    ls_syncs = sum(st.count for p, st in paths.items()
+                   if p[-2:] == ('solver.linesearch', 'sync'))
+    trials = ls_syncs - trips
+    assert trials >= trips
+    assert names['beta.objective'].count == trials + 1
+    assert names['beta.gradient'].count == trips + 1
+    assert names['beta.rows'] == (b * (trials + 1), 0.0, 0.0)
+    for p, st in paths.items():
+        if p[-1] == 'beta.rows':
+            assert p[-2] == 'beta.objective'
+        if p[-1] == 'beta.objective':
+            assert p[-2] in ('solver.setup', 'solver.linesearch')
+        if p[-1] == 'beta.gradient':
+            assert p[-2] in ('solver.setup', 'solver.update')
+
+
+def test_beta_rows_follow_compaction_and_the_disabled_line_search(
+        monkeypatch):
+    """With compaction every pass counts the rows of its own solve (the
+    phase-1 batch, a tail, the finishing pass), as many passes as the
+    objective was evaluated; with ``max_backtracks=0`` one objective pass a
+    trip and set-up's."""
+    passes = []
+    for name in ('beta_div', 'beta_div_with_dbeta'):
+        fn = getattr(dv, name)
+
+        def counted(den, *a, _fn=fn, **kw):
+            passes.append(den.shape[0])
+            return _fn(den, *a, **kw)
+        monkeypatch.setattr(dv, name, counted)
+    with obs.tracing() as t:
+        _restore_beta(b=16, phase1_iters=8, tail_bucket=4)
+    assert set(passes) == {16, 4}
+    assert t.get('beta.objective').count == len(passes)
+    assert t.get('beta.rows').count == sum(passes)
+
+    passes.clear()
+    with obs.tracing() as t:
+        res = _restore_beta(_beta_cfg(max_backtracks=0), b=4)
+    trips = int(res.iters.max())
+    assert len(passes) == trips + 1
+    assert t.get('beta.objective').count == trips + 1
+    assert t.get('beta.rows').count == 4 * (trips + 1)
+
+
+def test_kl_solve_records_no_beta_span_and_keeps_its_line_search_self():
+    """The KL path gains none of the beta spans and counters: its line
+    search's trials stay in ``solver.linesearch``'s own time, whose only
+    child span is the flag read."""
+    with obs.tracing() as t:
+        _restore(b=8)
+    assert not [n for n in t.by_name() if n.startswith('beta.')]
+    children = {p[-1] for p in t.by_path()
+                if len(p) > 1 and p[-2] == 'solver.linesearch'}
+    assert children == {'sync'}
+    ls = t.get('solver.linesearch')
+    assert ls.count > 0 and ls.self_s > 0
+
+
+def test_count_records_nothing_while_tracing_is_off(monkeypatch):
+    """Off, ``count`` adds to no recording and builds nothing; on, it adds
+    its number under the innermost open span, with no time."""
+    with obs.tracing() as t:
+        pass
+
+    def refused(*a, **kw):
+        raise AssertionError('a count was recorded with tracing off')
+    monkeypatch.setattr(obs.Trace, '_count', refused)
+    obs.count('beta.rows', 5)
+    res = _restore_beta(b=4)
+    assert int(res.iters.max()) > 0
+    assert obs.last_trace() is t and not t.by_path()
+    monkeypatch.undo()
+    with obs.tracing() as t:
+        obs.count('rows', 3)
+        with obs.span('outer'):
+            obs.count('rows', 2)
+            obs.count('rows', 4)
+    paths = t.by_path()
+    assert paths[('rows',)] == (3, 0.0, 0.0)
+    assert paths[('outer', 'rows')] == (6, 0.0, 0.0)
+    assert t.get('rows').count == 9
+    assert paths[('outer',)].count == 1
+
+
+def test_beta_results_are_bit_identical_with_tracing_on():
+    """The beta spans and counter change no arithmetic and read no device
+    value: x, iters and beta the same bits off, in a tracing() block and
+    under a profiler, and the host reads as many flags."""
+    from torch.profiler import ProfilerActivity, profile
+    off_reads, on_reads = _HostReads(), _HostReads()
+    with off_reads:
+        off = _restore_beta(b=8, phase1_iters=6, tail_bucket=4)
+    with obs.tracing() as t, on_reads:
+        on = _restore_beta(b=8, phase1_iters=6, tail_bucket=4)
+    with profile(activities=[ProfilerActivity.CPU]):
+        prof = _restore_beta(b=8, phase1_iters=6, tail_bucket=4)
+    for res in (on, prof):
+        assert torch.equal(res.x, off.x)
+        assert torch.equal(res.iters, off.iters)
+        assert torch.equal(res.beta, off.beta)
+    assert on_reads.n == off_reads.n == t.get('sync').count

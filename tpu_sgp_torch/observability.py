@@ -15,7 +15,9 @@ for each host read of a device flag. They record only while tracing is on
 (a ``torch.profiler`` records, or inside a ``tracing()`` block); then each
 span adds to a recording of counts and total and self times
 (``last_trace()``) and, under a profiler, lies in its trace as
-``tpu_sgp_torch.<name>`` on the profiler's own clock.
+``tpu_sgp_torch.<name>`` on the profiler's own clock. ``count(name, n)``
+adds to the same recording a counter with no time, under the innermost
+open span.
 """
 from __future__ import annotations
 
@@ -115,7 +117,8 @@ _profiler_enabled = torch.autograd._profiler_enabled
 
 
 class SpanStats(NamedTuple):
-    """The spans of one name (or of one path) in a recording."""
+    """The spans of one name (or of one path) in a recording; of a counter
+    (``count``), the sum of what was added and no time."""
     count: int
     total_s: float    # their whole durations
     self_s: float     # their durations less those of their child spans
@@ -140,6 +143,14 @@ class Trace:
                 agg[0] += 1
                 agg[1] += total_ns
                 agg[2] += self_ns
+
+    def _count(self, path: tuple, n: int) -> None:
+        with self._lock:
+            agg = self._paths.get(path)
+            if agg is None:
+                self._paths[path] = [n, 0, 0]
+            else:
+                agg[0] += n
 
     def by_path(self) -> dict:
         """{(root name, ..., name): SpanStats}."""
@@ -225,16 +236,36 @@ def span(name: str):
     it lies in the trace as the host event ``tpu_sgp_torch.<name>``. A new
     recording starts with the first span opened while tracing is on after
     one opened while it was off."""
-    global _fresh, _current
+    global _fresh
     profiling = _profiler_enabled()
     if not (profiling or _explicit):
         _fresh = True
         return NO_SPAN
+    return _Span(name, _recording(), profiling)
+
+
+def _recording() -> Trace:
+    """The recording that a span or count opened while tracing is on adds
+    to: a new one after a span opened while it was off."""
+    global _fresh, _current
     if _fresh:
         with _state_lock:
             if _fresh:
                 _current, _fresh = Trace(), False
-    return _Span(name, _current, profiling)
+    return _current
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` under the innermost span open on
+    this thread (its path, then ``name``), with no time: how much work a
+    span's pass covered where its count cannot say (rows of a batch that
+    shrinks). While tracing is off it records nothing, after the same one
+    test as ``span``; ``n`` is a host number, never a device value."""
+    if not (_profiler_enabled() or _explicit):
+        return
+    stack = getattr(_local, 'stack', None)
+    path = (stack[-1].path if stack else ()) + (name,)
+    _recording()._count(path, int(n))
 
 
 def traced(name: str):

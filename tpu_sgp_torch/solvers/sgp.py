@@ -40,7 +40,7 @@ import torch
 
 from ..config import SGPConfig
 from ..device import resolve_device
-from ..observability import host_flag, span
+from ..observability import count, host_flag, span
 from ..ops import divergence as dv
 from ..ops.mesh import resolve_axes
 from ..ops.psf_operator import make_operator
@@ -228,16 +228,30 @@ def _setup(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
     log_gn = torch.log(gn) if beta else None
     lr0 = _lanes(lr0, nb, dt, dev)
 
+    # The beta path's passes have spans of their own, and each objective
+    # pass counts the rows it covered (every row of the batch, those of
+    # lanes already done too); the KL path's stay inside their phases.
     def objective(x_tf, den, bp):
         """``_objective`` (sgp.py:140-146)."""
         if beta:
-            return dv.beta_div(den, gn, bp, ax, log_gn=log_gn, stable=stable)
+            with span('beta.objective'):
+                count('beta.rows', nb)
+                return dv.beta_div(den, gn, bp, ax, log_gn=log_gn,
+                                   stable=stable)
         return dv.kl_objective(x_tf, den, gn, flux, ax, stable=stable)
+
+    def objective_dbeta(den, bp):
+        """The beta objective and the row sums of its d/dbeta, one pass."""
+        with span('beta.objective'):
+            count('beta.rows', nb)
+            return dv.beta_div_with_dbeta(den, gn, bp, log_gn, ax,
+                                          stable=stable)
 
     def gradient(den, bp):
         """``_gradient`` (sgp.py:149-152)."""
         if beta:
-            return dv.beta_grad_wrt_recon(AT, den, gn, bp)
+            with span('beta.gradient'):
+                return dv.beta_grad_wrt_recon(AT, den, gn, bp)
         return dv.kl_grad_wrt_recon(AT, den, gn)
 
     sat_arg = sat if cfg.has_sat_level else None
@@ -393,8 +407,7 @@ def _setup(gn, psf, bkg, x0, flux_in, obj, beta0, lr0, sat_level,
                     x_tf_try = x_tf + col(lam) * d_tf
                     den_t = x_tf_try + bkg
                     if beta and cfg.adapt_beta:
-                        fv_t, dbeta = dv.beta_div_with_dbeta(
-                            den_t, gn, beta_p, log_gn, ax, stable=stable)
+                        fv_t, dbeta = objective_dbeta(den_t, beta_p)
                         if ax:
                             dbeta = ax.all_reduce(dbeta)
                     else:
