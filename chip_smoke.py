@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--from N]
 
-With ``--from N`` (13 to 43) phases 3 to N - 1 are skipped and no result is
+With ``--from N`` (13 to 44) phases 3 to N - 1 are skipped and no result is
 printed: a short run for work on the later phases. ``--rank ...`` is the
 entry of one rank of phases 31-33 (``rank_main``), which the script starts
 itself.
@@ -12,7 +12,8 @@ Phases, one line of output each (or a few):
   1. environment: torch, CUDA, nvcc, the card's name and power limit; TF32
      off for matrix products and convolutions;
   2. build: nvcc compiles ``tpu_sgp_torch/csrc/flux_projection.cu`` and
-     ``tpu_sgp_torch/csrc/stamp_solver.cu`` side by side; their ptxas
+     ``tpu_sgp_torch/csrc/stamp_solver.cu`` (and
+     ``compensated_sum.cu``) side by side; their ptxas
      reports (registers, spills) and resident blocks an SM, for every
      instantiation;
   3. the projection kernel against its plain PyTorch version on the same
@@ -186,6 +187,17 @@ Phases, one line of output each (or a few):
      launch calls and device kernels), its bound, and its ptxas line
      beside K1's grid kernel's. The launches of the guided kernel in the
      kernels line are phase 15's, in the facade's cold-'bisect' solve.
+ 44. the compensated row sum (``gsum_ff``) as one kernel: at (1, 168100)
+     float32 and float64 (a frame's row) and (12288, 961) float32 (a
+     stamp batch), the kernel against the plain tree on the card bit for
+     bit; the kernel's device time (calls replayed in a CUDA graph, so
+     neither the host's work nor the profiler enters) and its time a call
+     through the wrapper (CUDA events) against its bound (bytes) and the
+     plain tree's time, the launches a call of each (the kernel's counter;
+     the profiler's launch calls and device kernels), and its ptxas line
+     (registers, spills, blocks an SM). The launches and iterations of
+     the compensated sum in the kernels line are phase 15's, in the
+     float32 facade solve.
 
 Then a JSON line of the kernels (K2's entry lists the routes it launched,
 each with its launches, time and bound), the ``nvidia-smi`` line, and last
@@ -230,7 +242,7 @@ METHOD_TOL_F64 = 1e-10
 # so a sign census can differ by one section at the last step
 KERNEL_TOL = {'float32': 1e-5, 'float64': 1e-10}
 FLUX_RTOL = {'float32': 1e-4, 'float64': 1e-9}
-LIBRARIES = ('flux_projection', 'stamp_solver')
+LIBRARIES = ('flux_projection', 'stamp_solver', 'compensated_sum')
 # K2's operator alone against the dense circulant product, max|dy| over
 # max|x|: the two sum 961 products a pixel in different orders
 OPERATOR_TOL = {'float32': 1e-5, 'float64': 1e-12}
@@ -1118,6 +1130,31 @@ def count_launches(torch, fn) -> tuple:
     return len(device), len(host)
 
 
+def graph_ms(torch, fn, reps: int = 50) -> float:
+    """Mean milliseconds of the card's work a call of ``fn``: ``reps``
+    calls captured in one CUDA graph, the graph replayed between CUDA
+    events, so that neither the host's work a call (which bounds a loop of
+    calls of a short kernel) nor the profiler (which drops events late in
+    a long process) enters the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def phase_methods(torch) -> None:
     """Phase 9: each plain-PyTorch projection method on the card against
     the same call on the CPU, at the main path's (12288, 961), float32 and
@@ -1415,6 +1452,80 @@ def phase_guided_rows(torch) -> dict:
     return out
 
 
+# phase 44: the compensated row sum's shapes, (rows, pixels, dtype): a
+# frame's row in both types and a stamp batch
+FF_SUM_SHAPES = ((1, 410 * 410, 'float32'), (1, 410 * 410, 'float64'),
+                 (MAIN_B, N_PIX, 'float32'))
+
+
+def phase_compensated_sum(torch) -> dict:
+    """Phase 44: the compensated row sum as one launch
+    (``kernels.compensated_sum.ff_sum_rows``) against the plain tree
+    (``ops.reduce.tree_sum_ff``) on the card, bit for bit, at
+    ``FF_SUM_SHAPES``, on rows whose bits depend on the order of the sums;
+    then the kernel's device time (calls in a CUDA graph) and its time a
+    call through
+    the wrapper (CUDA events: the larger of the kernel and the wrapper's
+    host work), the plain tree's, the launches a call of each and the
+    bound (each value read once, each sum written once). Prints
+    the kernel's ptxas line. Returns the frame's float32 numbers."""
+    from tpu_sgp_torch.kernels import _build
+    from tpu_sgp_torch.kernels import compensated_sum as cs
+    from tpu_sgp_torch.ops.reduce import tree_sum_ff
+    lib = _build.build('compensated_sum')
+    report = ptxas_summary(lib.with_name(lib.name + '.log').read_text())
+    resident = occupancy(_build.load_library('compensated_sum'),
+                         'compensated_sum')
+    print('ptxas compensated_sum: ' + '; '.join(
+        f'{k} {v}, {resident.get(k, "?")}' for k, v in report.items()))
+    out = {}
+    for rows, n, name in FF_SUM_SHAPES:
+        dtype = getattr(torch, name)
+        rng = np.random.default_rng(n + rows)
+        k = n // 3
+        big = rng.normal(0.0, 1.0, (rows, k)) * 10.0 ** rng.uniform(
+            0, 8 if name == 'float32' else 24, (rows, k))
+        vals = np.concatenate([big, -big, rng.normal(0.0, 1e-2,
+                                                     (rows, n - 2 * k))], 1)
+        x = torch.as_tensor(rng.permuted(vals, axis=1), dtype=dtype,
+                            device='cuda')
+        before = cs.ff_sum_rows.launches
+        got = cs.ff_sum_rows(x)
+        check(cs.ff_sum_rows.launches == before + 1, 'one launch a call')
+        want = tree_sum_ff(x)
+        torch.cuda.synchronize()
+        bits = lambda t: t.view(torch.int32 if name == 'float32'
+                                else torch.int64)
+        check(torch.equal(bits(got), bits(want)),
+              f'({rows}, {n}) {name}: kernel bit-equal to the tree')
+        ms = graph_ms(torch, lambda: cs.ff_sum_rows(x))
+        ms2 = graph_ms(torch, lambda: cs.ff_sum_rows(x))
+        wrapper_ms = time_ms(torch, lambda: cs.ff_sum_rows(x), reps=200)
+        plain_ms = time_ms(torch, lambda: tree_sum_ff(x), reps=20)
+        k_dev, k_host = count_launches(torch, lambda: cs.ff_sum_rows(x))
+        p_dev, p_host = count_launches(torch, lambda: tree_sum_ff(x))
+        size = 4 if name == 'float32' else 8
+        # per value a read; per node (p - 1 of them) 8 operations
+        p = 1 << (n - 1).bit_length()
+        work = bound(size * rows * (n + 1), 8 * rows * p,
+                     ops_rate=F32_FLOP_S if size == 4 else F64_FLOP_S)
+        cols, levels, chunk = cs.ff_sum_plan(n, dtype)
+        print(f'compensated sum ({rows}, {n}) {name}: bit-equal to the '
+              f'plain tree; plan one block a row, {cols} columns x '
+              f'2^{levels} read 2^{chunk} at a time; kernel '
+              f'{ms:.4f} ms on the device (CUDA graph; again {ms2:.4f}), '
+              f'{wrapper_ms:.4f} ms a call back to back through the wrapper '
+              f'(CUDA events), {k_host} launch calls and '
+              f'{k_dev} device kernels in the profiler; plain tree '
+              f'{plain_ms:.4f} ms, {p_host} launch calls and {p_dev} device '
+              f'kernels; bound {work["bound_ms"]:.5f} ms '
+              f'({work["bound_by"]})')
+        out[(rows, n, name)] = dict(ms=ms, wrapper_ms=wrapper_ms,
+                                    plain_ms=plain_ms,
+                                    plain_launches=p_host, **work)
+    return out[FF_SUM_SHAPES[0]]
+
+
 def frame_inputs():
     """The whole-frame workload: a 410x410 field of 60 stars and its 31x31
     PSF (bench.py:402-403)."""
@@ -1570,9 +1681,10 @@ def phase_operators(torch) -> None:
 def phase_frame(torch, card: str) -> tuple:
     """Phase 15: the whole-frame path. Returns the launches of K1 (all on
     the grid path) in one 200-iteration ``solve`` with 'pallas', and those
-    of the guided kernel and the iterations in one facade ``sgp`` with
-    cold 'bisect'."""
+    of the guided kernel and of the compensated sum, each with the
+    iterations, in one float32 facade ``sgp`` with cold 'bisect'."""
     import tpu_sgp_torch as tsgp
+    from tpu_sgp_torch.kernels.compensated_sum import ff_sum_rows
     from tpu_sgp_torch.kernels.flux_projection import (project_guided_rows,
                                                        project_rows)
     img, psf = frame_inputs()
@@ -1583,20 +1695,28 @@ def phase_frame(torch, card: str) -> tuple:
     kw = dict(init_recon=2, proj_type=1, stop_criterion=3, MAXIT=500,
               tol_convergence=1e-5)
     tsgp.sgp(img, psf, FRAME_BKG, **dict(kw, MAXIT=3))          # warm-up
-    project_guided_rows.launches = 0
+    project_guided_rows.launches = ff_sum_rows.launches = 0
     x, iters, discr, times, err = tsgp.sgp(img, psf, FRAME_BKG, **kw)
     guided = dict(launches=project_guided_rows.launches, iters=int(iters))
+    ff_sum = dict(launches=ff_sum_rows.launches, iters=int(iters))
     check(isinstance(x, np.ndarray) and x.dtype == np.float32
           and err is None and discr.shape == times.shape == (iters + 1,),
           'sgp returns the reference\'s tuple')
     check(guided['launches'] == iters + 1, f'the guided kernel ran once a '
           f'projection ({guided["launches"]} launches in {iters} '
           f'iterations)')
+    # the float32 objective's two compensated sums, at set-up and at each
+    # line-search trial (at least one an iteration)
+    check(ff_sum['launches'] >= 2 * (iters + 1)
+          and ff_sum['launches'] % 2 == 0, f'the compensated sum ran twice '
+          f'an objective ({ff_sum["launches"]} launches in {iters} '
+          f'iterations)')
     flux = check_frame(torch, x, img, 'sgp 410x410')
     print(f'frame sgp 410x410 psf 31x31 float32 (linear, cold bisect, stop '
           f'3 at 1e-5): iters={iters} wall={times[-1]:.4f} s '
           f'({times[-1] * 1e3 / max(iters, 1):.3f} ms an iteration), guided '
-          f'kernel launches={guided["launches"]}, flux rel err={flux:.3e} '
+          f'kernel launches={guided["launches"]}, compensated sum '
+          f'launches={ff_sum["launches"]}, flux rel err={flux:.3e} '
           f'[{card}]')
 
     launches = None
@@ -1659,7 +1779,7 @@ def phase_frame(torch, card: str) -> tuple:
     print(f'frame sgp_beta_div 410x410 float32 (linear, cold bisect, beta0 '
           f'1.005, stop 3 at 1e-5): iters={iters} wall={times[-1]:.4f} s '
           f'flux rel err={flux:.3e} [{card}]')
-    return launches, guided
+    return launches, guided, ff_sum
 
 
 def phase_frame_vs_cpu(torch) -> None:
@@ -4040,7 +4160,8 @@ def main() -> int:
                               (41, lambda: phase_distributed_demo(
                                   card, ran_worlds())),
                               (42, lambda: phase_k2_shapes(torch, card)),
-                              (43, lambda: phase_guided_rows(torch))):
+                              (43, lambda: phase_guided_rows(torch)),
+                              (44, lambda: phase_compensated_sum(torch))):
             if number >= first:
                 phase()
         print(f'partial run from phase {first}: no result')
@@ -4065,7 +4186,7 @@ def main() -> int:
     # 13-17
     long_row = phase_long_rows(torch)
     phase_operators(torch)
-    frame_launches, frame_guided = phase_frame(torch, card)
+    frame_launches, frame_guided, frame_ff_sum = phase_frame(torch, card)
     phase_frame_vs_cpu(torch)
     phase_classic_checkpoint(torch)
 
@@ -4107,6 +4228,7 @@ def main() -> int:
     shapes = time.perf_counter()
     k2['routes'] += phase_k2_shapes(torch, card)
     guided = phase_guided_rows(torch)['float32']
+    ff_sum = phase_compensated_sum(torch)
     done = time.perf_counter()
     in_worlds = sum(float(w[0].get('examples/demo_wall', 0.0))
                     + float(w[0].get('examples/halo_wall', 0.0))
@@ -4117,7 +4239,8 @@ def main() -> int:
           f'(31-33, with the examples of 37 and 41) '
           f'{examples - meshes:.1f} s, the examples (34-41) '
           f'{shapes - examples:.1f} s and {in_worlds:.1f} s in the worlds, '
-          f'K2\'s shapes and the guided kernel (42-43) '
+          f'K2\'s shapes, the guided kernel and the compensated sum '
+          f'(42-44) '
           f'{done - shapes:.1f} s, all '
           f'{done - started:.1f} s')
 
@@ -4139,7 +4262,11 @@ def main() -> int:
                     '_guided_root', **frame_guided, **guided}, {
         'name': 'stamp_solver', 'route': 'cuda',
         'source': 'tpu_sgp_torch/csrc/stamp_solver.cu',
-        'replaces': 'tpu_sgp/experimental/pallas_batch.py:57', **k2}]}))
+        'replaces': 'tpu_sgp/experimental/pallas_batch.py:57', **k2}, {
+        'name': 'compensated_sum_frame_row', 'route': 'cuda',
+        'source': 'tpu_sgp_torch/csrc/compensated_sum.cu',
+        'replaces': 'tpu_sgp_torch/ops/reduce.py:tree_sum_ff', **ff_sum,
+        **frame_ff_sum}]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

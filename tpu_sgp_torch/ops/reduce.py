@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import compensated_sum
+
 
 def gsum(x: torch.Tensor, axes=()) -> torch.Tensor:
     """Row sums (``reduce.py:16-18``)."""
@@ -41,15 +43,16 @@ def gmean(x: torch.Tensor, axes=()) -> torch.Tensor:
     return both[..., 0] / both[..., 1]
 
 
-def gsum_ff(x: torch.Tensor, axes=()) -> torch.Tensor:
+def tree_sum_ff(x: torch.Tensor) -> torch.Tensor:
     """Compensated (float-float) pairwise-tree row sums with a fixed order
-    (``reduce.py:39-75``): the row is zero-padded to a power of two and
-    halved level by level, each pair combined with an exact two-sum whose
-    rounding error rides in a parallel accumulator. The pairing is the JAX
-    version's, so both give the same scalar. Under mesh axes each rank's
-    compensated sum is then combined by a plain all-reduce (``:75``)."""
+    (``reduce.py:39-75``), in plain PyTorch: the row is zero-padded to a
+    power of two and halved level by level, each pair combined with an
+    exact two-sum whose rounding error rides in a parallel accumulator. The
+    pairing is the JAX version's, so both give the same scalar."""
     n = x.shape[-1]
-    p = 1 << max(0, int(n - 1).bit_length())
+    if n == 0:
+        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    p = 1 << (n - 1).bit_length()
     if p != n:
         x = torch.nn.functional.pad(x, (0, p - n))
     hi, lo = x, torch.zeros_like(x)
@@ -62,8 +65,18 @@ def gsum_ff(x: torch.Tensor, axes=()) -> torch.Tensor:
         lo = lo[..., :h] + lo[..., h:] + err
         hi = s
         p = h
-    if n == 0:
-        s = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    return (hi + lo)[..., 0]
+
+
+def gsum_ff(x: torch.Tensor, axes=()) -> torch.Tensor:
+    """Compensated row sums (``reduce.py:39-75``): on a CUDA tensor one
+    launch of ``kernels.compensated_sum.ff_sum_rows``, on a CPU tensor (or
+    an empty row) ``tree_sum_ff``; the two give the same bits. Under mesh
+    axes each rank's compensated sum is then combined by a plain all-reduce
+    (``:75``)."""
+    if x.is_cuda and x.shape[-1]:
+        s = compensated_sum.ff_sum_rows(
+            x if x.stride(-1) == 1 else x.contiguous())
     else:
-        s = (hi + lo)[..., 0]
+        s = tree_sum_ff(x)
     return axes.all_reduce(s, 'sum') if axes else s
