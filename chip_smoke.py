@@ -404,15 +404,17 @@ def sass_count(lib_path, opcode: str) -> dict:
     return out
 
 
-def occupancy(lib, name: str) -> dict:
-    """Resident blocks an SM of each instantiation the library reports
+def occupancy(name: str) -> dict:
+    """Resident blocks an SM of each instantiation the library of
+    ``csrc/<name>.cu`` reports
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through its
     ``tpu_sgp_<name>_occupancy`` entry), by name."""
     import ctypes
-    fn = getattr(lib, f'tpu_sgp_{name}_occupancy')
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
+    from tpu_sgp_torch.kernels import _build
+    fn = _build.entry(name, f'tpu_sgp_{name}_occupancy',
+                      (ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)))
     out, i = {}, 0
     buf = ctypes.create_string_buffer(128)
     n, blocks = ctypes.c_int(), ctypes.c_int()
@@ -444,7 +446,7 @@ def phase_build() -> None:
         print(f'build: {lib.name} in {secs:.2f} s (side by side, all '
               f'{total:.2f} s)')
         report = ptxas_summary(lib.with_name(lib.name + '.log').read_text())
-        resident = occupancy(_build.load_library(name), name)
+        resident = occupancy(name)
         print(f'ptxas {name}: ' + '; '.join(
             f'{k} {v}' + (f', {resident[k]}' if k in resident else '')
             for k, v in report.items()))
@@ -568,18 +570,18 @@ def phase_main_path(torch, card: str) -> tuple:
     """Phase 4: the main path at full size, after one warm-up run. The
     kernel's launch count is that of the first timed run; the wall is the
     median of three timed runs."""
-    from tpu_sgp_torch.kernels.flux_projection import project_rows
+    from tpu_sgp_torch.kernels import launches as kernel_launches
     inputs = main_path_inputs(MAIN_B)
     restore(torch, inputs, 'cuda')           # warm-up
     walls = []
     for i in range(3):
         if i == 0:
-            project_rows.launches = 0
+            kernel_launches['project_rows'] = 0
         t0 = time.perf_counter()
         res = restore(torch, inputs, 'cuda')
         walls.append(time.perf_counter() - t0)
         if i == 0:
-            launches = project_rows.launches
+            launches = kernel_launches['project_rows']
             check_restoration(torch, res, inputs, 'cuda')
             check(launches > 0,
                   'the main path launched the projection kernel')
@@ -774,6 +776,13 @@ def k2_full_width_agree(torch, x, it, xp, ip, what: str) -> float:
     return max_abs
 
 
+def k2_routes(launches) -> dict:
+    """K2's launches by route (``'TcPatch'``, ...) in the port's launch
+    counter."""
+    return {k.removeprefix('solve_rows/'): v for k, v in launches.items()
+            if k.startswith('solve_rows/') and v}
+
+
 def phase_k2_full(torch, card: str, unfused_wall: float,
                   unfused_iters) -> dict:
     """Phase 7: ``solve_stamps_pallas`` at full width on phase 4's inputs,
@@ -786,6 +795,7 @@ def phase_k2_full(torch, card: str, unfused_wall: float,
     from tpu_sgp_torch import SGPConfig
     from tpu_sgp_torch.experimental.pallas_batch import (solve_stamps_pallas,
                                                          stamp_rows)
+    from tpu_sgp_torch.kernels import launches as kernel_launches
     from tpu_sgp_torch.kernels.stamp_solver import (device_plan, solve_rows,
                                                     solve_rows_plain)
     inputs = main_path_inputs(MAIN_B)
@@ -800,15 +810,14 @@ def phase_k2_full(torch, card: str, unfused_wall: float,
     run()                                   # warm-up
     walls, counts = [], []
     for _ in range(3):
-        solve_rows.launches = 0
-        solve_rows.routes.clear()
+        kernel_launches.clear()
         t0 = time.perf_counter()
         x, iters = run()
         walls.append(time.perf_counter() - t0)
-        counts.append(solve_rows.launches)
-        check(dict(solve_rows.routes) == {'TcPatch': 1},
+        counts.append(kernel_launches['solve_rows'])
+        check(k2_routes(kernel_launches) == {'TcPatch': 1},
               f'the main path\'s stamps take the TcPatch route: '
-              f'{dict(solve_rows.routes)}')
+              f'{k2_routes(kernel_launches)}')
     check(counts == [1, 1, 1], 'one whole-solver launch per call')
     check(x.is_cuda and tuple(x.shape) == stamps.shape,
           'K2 x lies on the card in the stamps\' shape')
@@ -1019,6 +1028,7 @@ def phase_k2_shapes(torch, card: str) -> list:
     from tpu_sgp_torch import SGPConfig
     from tpu_sgp_torch.experimental.pallas_batch import (solve_stamps_pallas,
                                                          stamp_rows)
+    from tpu_sgp_torch.kernels import launches as kernel_launches
     from tpu_sgp_torch.kernels.stamp_solver import (apply_operator,
                                                     apply_operator_plain,
                                                     solve_rows,
@@ -1027,14 +1037,14 @@ def phase_k2_shapes(torch, card: str) -> list:
     from tpu_sgp_torch.simulate import shaped_star_stamps
     b = K2_ROUTE_B
     cfg64 = SGPConfig(**{**BENCH_CFG, 'dtype': 'float64'})
-    solve_rows.launches = 0
+    kernel_launches['solve_rows'] = 0
     try:
         solve_stamps_pallas(*shaped_star_stamps(b, 4, 1024, 41), SAT_LEVEL,
                             cfg64)
         refused = None
     except ValueError as e:
         refused = str(e)
-    check(refused is not None and solve_rows.launches == 0,
+    check(refused is not None and kernel_launches['solve_rows'] == 0,
           'float64 4x1024 raises ValueError before any launch')
     print(f'K2 shapes float64 4x1024: ValueError before any launch: '
           f'{refused}')
@@ -1058,11 +1068,10 @@ def phase_k2_shapes(torch, card: str) -> list:
             if over.get('dtype', 'float32') != name:
                 continue
             cfg = SGPConfig(**{**BENCH_CFG, **over})
-            solve_rows.launches = 0
-            solve_rows.routes.clear()
+            kernel_launches.clear()
             x, it = solve_stamps_pallas(*inputs, SAT_LEVEL, cfg)
             torch.cuda.synchronize()
-            counted = dict(solve_rows.routes)
+            counted = k2_routes(kernel_launches)
             check(counted == {plan.route: 1},
                   f'{h}x{w} {name}: one launch on {plan.route}: {counted}')
             launches += counted[plan.route]
@@ -1299,10 +1308,11 @@ def phase_long_rows(torch) -> dict:
     ``KERNEL_TOL`` of max|x|. Then the times at (1, 168100) float32
     without saturation, the whole-frame solve's own call: grid path,
     one-block path, grid path again, plain version."""
+    from tpu_sgp_torch.kernels import launches as kernel_launches
     from tpu_sgp_torch.kernels.flux_projection import (launch_plan,
                                                        project_rows,
-                                                       project_rows_plain)
-    from tpu_sgp_torch.projection.flux_projection import section_steps
+                                                       project_rows_plain,
+                                                       section_steps)
     main_err, seed = None, 300
     for rows, n in LONG_ROWS:
         for name in ('float32', 'float64'):
@@ -1316,9 +1326,9 @@ def phase_long_rows(torch) -> dict:
                 seed += 1
                 args = projection_case(torch, rows, n, dtype, has_sat,
                                        'cuda', seed)
-                before = project_rows.grid_launches
+                before = kernel_launches['project_rows.grid']
                 got = project_rows(*args, steps, has_sat)
-                check(project_rows.grid_launches == before + 1,
+                check(kernel_launches['project_rows.grid'] == before + 1,
                       'the call took the grid path')
                 one = project_rows(*args, steps, has_sat, path='rows')
                 want = project_rows_plain(*args, steps, has_sat)
@@ -1374,14 +1384,13 @@ def phase_guided_rows(torch) -> dict:
     calls and device kernels), and the bound. Prints the guided kernel's
     ptxas lines beside K1's grid kernel's."""
     from tpu_sgp_torch.kernels import _build
+    from tpu_sgp_torch.kernels import launches as kernel_launches
     from tpu_sgp_torch.kernels.flux_projection import (guided_plan,
-                                                       guided_route,
-                                                       project_guided_rows)
+                                                       guided_route)
     from tpu_sgp_torch.projection import flux_projection as tproj
     lib = _build.build('flux_projection')
     report = ptxas_summary(lib.with_name(lib.name + '.log').read_text())
-    resident = occupancy(_build.load_library('flux_projection'),
-                         'flux_projection')
+    resident = occupancy('flux_projection')
     print('ptxas guided: ' + '; '.join(
         f'{k} {v}, {resident.get(k, "?")}' for k, v in report.items()
         if k.startswith(('project_rows_guided_grid_kernel',
@@ -1399,10 +1408,10 @@ def phase_guided_rows(torch) -> dict:
                                              'cuda', seed)
             scaling = torch.ones_like(b)
             sat = cap if has_sat else None
-            before = project_guided_rows.launches
+            before = kernel_launches['project_guided_rows']
             x = tproj.project('bisect', b, c, dia, scaling, sat_level=sat,
                               has_sat=has_sat)
-            check(project_guided_rows.launches == before + 1,
+            check(kernel_launches['project_guided_rows'] == before + 1,
                   'the call took the guided kernel')
             xp = tproj._guided_root(b, c, dia, scaling, sat, has_sat,
                                     None)[0]
@@ -1428,9 +1437,9 @@ def phase_guided_rows(torch) -> dict:
         ms = time_ms(torch, kern, reps=50)
         plain_ms = time_ms(torch, plain, reps=10)
         ms2 = time_ms(torch, kern, reps=50)
-        before = project_guided_rows.launches
+        before = kernel_launches['project_guided_rows']
         kern()
-        counted = project_guided_rows.launches - before
+        counted = kernel_launches['project_guided_rows'] - before
         k_dev, k_host = count_launches(torch, kern)
         p_dev, p_host = count_launches(torch, plain)
         points = 4 + 3 * (tproj.newton_passes(dtype) + 1)
@@ -1471,11 +1480,11 @@ def phase_compensated_sum(torch) -> dict:
     the kernel's ptxas line. Returns the frame's float32 numbers."""
     from tpu_sgp_torch.kernels import _build
     from tpu_sgp_torch.kernels import compensated_sum as cs
+    from tpu_sgp_torch.kernels import launches as kernel_launches
     from tpu_sgp_torch.ops.reduce import tree_sum_ff
     lib = _build.build('compensated_sum')
     report = ptxas_summary(lib.with_name(lib.name + '.log').read_text())
-    resident = occupancy(_build.load_library('compensated_sum'),
-                         'compensated_sum')
+    resident = occupancy('compensated_sum')
     print('ptxas compensated_sum: ' + '; '.join(
         f'{k} {v}, {resident.get(k, "?")}' for k, v in report.items()))
     out = {}
@@ -1489,9 +1498,10 @@ def phase_compensated_sum(torch) -> dict:
                                                      (rows, n - 2 * k))], 1)
         x = torch.as_tensor(rng.permuted(vals, axis=1), dtype=dtype,
                             device='cuda')
-        before = cs.ff_sum_rows.launches
+        before = kernel_launches['ff_sum_rows']
         got = cs.ff_sum_rows(x)
-        check(cs.ff_sum_rows.launches == before + 1, 'one launch a call')
+        check(kernel_launches['ff_sum_rows'] == before + 1,
+              'one launch a call')
         want = tree_sum_ff(x)
         torch.cuda.synchronize()
         bits = lambda t: t.view(torch.int32 if name == 'float32'
@@ -1684,9 +1694,7 @@ def phase_frame(torch, card: str) -> tuple:
     of the guided kernel and of the compensated sum, each with the
     iterations, in one float32 facade ``sgp`` with cold 'bisect'."""
     import tpu_sgp_torch as tsgp
-    from tpu_sgp_torch.kernels.compensated_sum import ff_sum_rows
-    from tpu_sgp_torch.kernels.flux_projection import (project_guided_rows,
-                                                       project_rows)
+    from tpu_sgp_torch.kernels import launches as kernel_launches
     img, psf = frame_inputs()
 
     # the facade: numpy in, numpy out, the card by default, cold 'bisect',
@@ -1695,10 +1703,11 @@ def phase_frame(torch, card: str) -> tuple:
     kw = dict(init_recon=2, proj_type=1, stop_criterion=3, MAXIT=500,
               tol_convergence=1e-5)
     tsgp.sgp(img, psf, FRAME_BKG, **dict(kw, MAXIT=3))          # warm-up
-    project_guided_rows.launches = ff_sum_rows.launches = 0
+    kernel_launches.clear()
     x, iters, discr, times, err = tsgp.sgp(img, psf, FRAME_BKG, **kw)
-    guided = dict(launches=project_guided_rows.launches, iters=int(iters))
-    ff_sum = dict(launches=ff_sum_rows.launches, iters=int(iters))
+    guided = dict(launches=kernel_launches['project_guided_rows'],
+                  iters=int(iters))
+    ff_sum = dict(launches=kernel_launches['ff_sum_rows'], iters=int(iters))
     check(isinstance(x, np.ndarray) and x.dtype == np.float32
           and err is None and discr.shape == times.shape == (iters + 1,),
           'sgp returns the reference\'s tuple')
@@ -1724,9 +1733,10 @@ def phase_frame(torch, card: str) -> tuple:
         cfg_t = tsgp.SGPConfig(**FRAME_TIMED, projection_method=method)
         cfg_c = tsgp.SGPConfig(**FRAME_CONVERGED, projection_method=method)
         solve_frame(torch, img, psf, cfg_t.replace(max_iter=3))  # warm-up
-        project_rows.launches = project_rows.grid_launches = 0
+        kernel_launches.clear()
         res_t, wall_t = solve_frame(torch, img, psf, cfg_t)
-        counts = project_rows.launches, project_rows.grid_launches
+        counts = (kernel_launches['project_rows'],
+                  kernel_launches['project_rows.grid'])
         res_c, wall_c = solve_frame(torch, img, psf, cfg_c)
         it_t, it_c = int(res_t.iters[0]), int(res_c.iters[0])
         check(res_t.x.is_cuda and it_t == 200, f'{method}: 200 iterations on '
@@ -1937,10 +1947,11 @@ def phase_session(torch, card: str) -> dict:
     and for four requests coalesced into one 1024-stamp call; the kernel
     is held against its plain version and timed at both shapes."""
     from tpu_sgp_torch import SGPConfig, restore_stamps
+    from tpu_sgp_torch.kernels import launches as kernel_launches
     from tpu_sgp_torch.kernels.flux_projection import (project_rows,
-                                                       project_rows_plain)
+                                                       project_rows_plain,
+                                                       section_steps)
     from tpu_sgp_torch.parallel.session import RestorationSession
-    from tpu_sgp_torch.projection.flux_projection import section_steps
     psf, reqs = serving_requests(4, SERVE_B)
     stamps, bkgs, fluxes = reqs['float64'][0]
     launches = {}
@@ -1952,12 +1963,12 @@ def phase_session(torch, card: str) -> dict:
         walls = []
         for i in range(25):
             if i == 0:
-                project_rows.launches = 0
+                kernel_launches['project_rows'] = 0
             t0 = time.perf_counter()
             res = sess.restore(stamps, bkgs, fluxes)
             walls.append((time.perf_counter() - t0) * 1e3)
             if i == 0:
-                launches[SERVE_B] = project_rows.launches
+                launches[SERVE_B] = kernel_launches['project_rows']
         want = restore_stamps(stamps, psf, bkgs, sess.cfg, fluxes=fluxes,
                               beta0=sess.beta0, sat_level=SAT_LEVEL,
                               bucket=True, flatten=True)
@@ -1970,9 +1981,9 @@ def phase_session(torch, card: str) -> dict:
                 and np.array_equal(res.iters, want.iters.cpu().numpy()))
         extra = ''
         if method == 'pallas':
-            project_rows.launches = 0
+            kernel_launches['project_rows'] = 0
             outs = list(sess.restore_stream(reqs['float64'], coalesce=4))
-            launches[4 * SERVE_B] = project_rows.launches
+            launches[4 * SERVE_B] = kernel_launches['project_rows']
             check(len(outs) == 4 and launches[SERVE_B] > 0
                   and launches[4 * SERVE_B] > 0,
                   'the serving path launched the projection kernel')
@@ -2896,7 +2907,7 @@ def phase_raw_frame(torch, card: str) -> dict:
     from tpu_sgp_torch.image import (getheader, read_fits,
                                      write_fits_compressed)
     from tpu_sgp_torch.image import tile_compression as tc
-    from tpu_sgp_torch.kernels.flux_projection import project_rows
+    from tpu_sgp_torch.kernels import launches as kernel_launches
     from tpu_sgp_torch.psf import pipeline, read_coo
     from tpu_sgp_torch.solvers.sgp import solve
     from tpu_sgp_torch.utils import sigma_clipped_stats
@@ -3030,13 +3041,13 @@ def phase_raw_frame(torch, card: str) -> dict:
         run_solve()                                           # warm-up
         torch.cuda.synchronize()
         logdir = os.path.join(tmp, 'trace')
-        launches = project_rows.grid_launches
+        launches = kernel_launches['project_rows.grid']
         with observability.profiled(logdir):
             t0 = time.perf_counter()
             res = run_solve()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = project_rows.grid_launches - launches
+        launches = kernel_launches['project_rows.grid'] - launches
         kernels, device_us = trace_kernels(logdir)
         grid = [n for n in kernels if 'project_rows_grid_kernel' in n]
         it = int(res.iters[0])
@@ -3190,7 +3201,7 @@ def rank_stamps(torch, dist, n: int) -> dict:
     just before, read just after) and then timed."""
     from torch.distributed.device_mesh import DeviceMesh
     from tpu_sgp_torch import SGPConfig, restore_stamps
-    from tpu_sgp_torch.kernels.flux_projection import project_rows
+    from tpu_sgp_torch.kernels import launches as kernel_launches
     mesh = DeviceMesh('cuda', torch.arange(n), mesh_dim_names=('batch',))
     stamps, psf, bkgs, fluxes = main_path_inputs(MAIN_B)
     out = {}
@@ -3207,7 +3218,7 @@ def rank_stamps(torch, dist, n: int) -> dict:
             torch.cuda.synchronize()
             dist.barrier()
             if i == 0:
-                project_rows.launches = 0
+                kernel_launches['project_rows'] = 0
             t0 = time.perf_counter()
             res = restore_stamps(stamps, psf, bkgs, SGPConfig(**cfg),
                                  fluxes=fluxes, sat_level=SAT_LEVEL,
@@ -3215,7 +3226,7 @@ def rank_stamps(torch, dist, n: int) -> dict:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             if i == 0:
-                launches = project_rows.launches
+                launches = kernel_launches['project_rows']
                 check(res.x.is_cuda and tuple(res.x.shape) == stamps.shape
                       and bool(torch.isfinite(res.x).all()),
                       'finite stamps of the batch\'s shape on the card')
@@ -3244,7 +3255,7 @@ def rank_server(torch, dist, mesh) -> dict:
     import threading
     from concurrent.futures import ThreadPoolExecutor
     from tpu_sgp_torch import SGPConfig
-    from tpu_sgp_torch.kernels.flux_projection import project_rows
+    from tpu_sgp_torch.kernels import launches as kernel_launches
     from tpu_sgp_torch.parallel.session import (MicroBatchServer,
                                                 RestorationSession)
     first = dist.get_rank() == 0
@@ -3279,10 +3290,10 @@ def rank_server(torch, dist, mesh) -> dict:
         session.warmup(max_batch=SERVER_CLIENTS * CLIENT_B)
         torch.cuda.synchronize()
         dist.barrier()
-        project_rows.launches = 0
+        kernel_launches['project_rows'] = 0
         got, wall, server = serve(session, SERVER_CLIENTS, max_batch=1024,
                                   max_delay_s=0.002)
-        launches = project_rows.launches
+        launches = kernel_launches['project_rows']
         if first:
             out[f'{path}/f32_x'] = np.concatenate([g.x for g in got])
             out[f'{path}/f32_iters'] = np.concatenate([g.iters for g in got])

@@ -122,8 +122,6 @@ def build(key):
 
 
 def main() -> int:
-    import ctypes
-
     import torch
     if not torch.cuda.is_available():
         print('FAIL: torch.cuda.is_available() is False; this run needs an '
@@ -133,7 +131,7 @@ def main() -> int:
     from tpu_sgp_torch import SGPConfig
     from tpu_sgp_torch.experimental.pallas_batch import stamp_rows
     from tpu_sgp_torch.kernels import _build, flux_projection, stamp_solver
-    from tpu_sgp_torch.projection.flux_projection import section_steps
+    from tpu_sgp_torch.kernels.flux_projection import section_steps
     print(cs.run(['nvidia-smi', '--query-gpu=name,power.limit',
                   '--format=csv,noheader']).splitlines()[0])
 
@@ -155,26 +153,18 @@ def main() -> int:
                for rows in (cs.MAIN_B, cs.COMPACTION['tail_bucket'])}
     long_args = cs.projection_case(torch, *LONG_ROW, torch.float32, False,
                                    'cuda', 399)
-    wrappers = {'stamp_solver': stamp_solver, 'flux_projection':
-                flux_projection}
-
     planned = stamp_solver.stamp_solver_plan
 
     def use(key):
-        """Point the port's wrapper of this kernel at the variant's
+        """Point the port's wrappers of this kernel at the variant's
         library, and K2's launch plan at the variant's route if it names
         one."""
         kernel = key[0]
-        _build._LOADED[kernel] = ctypes.CDLL(str(built[key][0]))
-        wrappers[kernel]._entry.cache_clear()
+        _build.use_library(kernel, built[key][0])
         if kernel == 'stamp_solver':
-            stamp_solver._operator_entry.cache_clear()
-            stamp_solver._route_entry.cache_clear()
             stamp_solver.stamp_solver_plan = planned if key not in ROUTED \
                 else lambda h, w, dtype, smem_limit: stamp_solver.route_plan(
                     *ROUTED[key], h, w, dtype, smem_limit)[0]
-        else:
-            flux_projection.launch_plan.cache_clear()
 
     # K2's operator alone at phase 7's count of applications (chip_smoke.py
     # phase 8), from the kernel as built

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tpu_sgp_torch.kernels import compensated_sum as cs
+from tpu_sgp_torch.kernels import launches
 from tpu_sgp_torch.ops import reduce as tred
 
 # rows of one value to columns of 512 (a block holds at most 1024
@@ -163,10 +164,10 @@ def test_cpu_rows_take_the_plain_tree():
     """A CPU tensor keeps the plain tree: no kernel, the same bits as
     ``tree_sum_ff``, over leading axes too; an empty row sums to zeros."""
     x = _values(np.random.default_rng(5), 6, 1025, torch.float32)
-    before = cs.ff_sum_rows.launches
+    before = launches['ff_sum_rows']
     assert torch.equal(_bits(tred.gsum_ff(x.reshape(2, 3, 1025))),
                        _bits(tred.tree_sum_ff(x)).reshape(2, 3))
-    assert cs.ff_sum_rows.launches == before
+    assert launches['ff_sum_rows'] == before
     z = tred.gsum_ff(torch.zeros(4, 0, dtype=torch.float64))
     assert z.shape == (4,) and z.dtype == torch.float64 and not z.any()
     with pytest.raises(ValueError, match='CUDA'):
@@ -188,9 +189,9 @@ def _card():
 def test_kernel_equals_the_tree_on_card(n, rows, dtype):
     _card()
     x = _values(np.random.default_rng(n + rows), rows, n, dtype).cuda()
-    before = cs.ff_sum_rows.launches
+    before = launches['ff_sum_rows']
     got = cs.ff_sum_rows(x)
-    assert cs.ff_sum_rows.launches == before + 1
+    assert launches['ff_sum_rows'] == before + 1
     want = tred.tree_sum_ff(x)
     torch.cuda.synchronize()
     assert got.shape == (rows,) and got.dtype == dtype
@@ -273,9 +274,9 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match='size'):
         cs.ff_sum_rows(x[:, :0])
     # gsum_ff makes a transposed row contiguous and still launches
-    before = cs.ff_sum_rows.launches
+    before = launches['ff_sum_rows']
     assert torch.equal(tred.gsum_ff(x.T), tred.tree_sum_ff(x.T.cpu()).cuda())
-    assert cs.ff_sum_rows.launches == before + 1
+    assert launches['ff_sum_rows'] == before + 1
 
 
 def _frame():
@@ -302,9 +303,9 @@ def test_facade_frame_is_bit_equal_with_the_kernel_and_the_tree(monkeypatch):
     tree on the card."""
     _card()
     img, psf = _frame()
-    before = cs.ff_sum_rows.launches
+    before = launches['ff_sum_rows']
     x, iters, *_ = _facade(img, psf)
-    launched = cs.ff_sum_rows.launches - before
+    launched = launches['ff_sum_rows'] - before
     monkeypatch.setattr(cs, 'ff_sum_rows', tred.tree_sum_ff)
     xp, iters_p, *_ = _facade(img, psf)
     assert launched >= 2 * (iters + 1)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_sgp_torch.kernels import launches
 from tpu_sgp_torch.kernels.flux_projection import (project_rows,
                                                    project_rows_plain)
 from tpu_sgp_torch.projection import flux_projection as tproj
@@ -111,6 +112,30 @@ def test_single_image_matches_jax_pallas(dtype, tol, shape, has_sat,
     assert err <= tol, err
 
 
+@pytest.mark.parametrize('n_iters', [None, 7, 30])
+@pytest.mark.parametrize('has_sat', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_single_image_is_the_batched_projection_of_one_row(dtype, has_sat,
+                                                           n_iters):
+    """``experimental.pallas_projection.project_df_pallas`` on a CPU
+    image gives the bits of ``projection.project_df_pallas`` on the
+    image's one row, with the steps of ``n_iters`` bits."""
+    from tpu_sgp_torch.experimental import pallas_projection as tpp
+    b, c, dia, scaling, sat = _rows(np.random.default_rng(41), rows=1,
+                                    n=37 * 53)
+    t = lambda a: torch.as_tensor(a, dtype=dtype)
+    got = tpp.project_df_pallas(float(b[0]), t(c).reshape(37, 53),
+                                t(dia).reshape(37, 53), float(scaling[0]),
+                                sat_level=float(sat[0]) if has_sat else None,
+                                n_iters=n_iters)
+    bits = tproj.bracket_bits(dtype) if n_iters is None else n_iters
+    want = tproj.project_df_pallas(
+        t(b), t(c), t(dia), t(scaling), t(sat) if has_sat else None,
+        has_sat, n_steps=-(-bits // 3))
+    assert got.dtype == dtype and tuple(got.shape) == (37, 53)
+    assert torch.equal(got.reshape(1, -1), want)
+
+
 @pytest.mark.parametrize('dtype,rtol', [(torch.float32, 1e-5),
                                         (torch.float64, 1e-12)])
 def test_flux_conserved(dtype, rtol):
@@ -137,10 +162,10 @@ def test_cpu_tensor_takes_plain_path():
     b, c, dia, scaling, sat = _rows(np.random.default_rng(7), rows=3, n=100)
     t = torch.as_tensor
     cap = t(sat / scaling)
-    before = project_rows.launches
+    before = launches['project_rows']
     got = project_rows(t(b), t(c), t(dia), cap, 18, True)
     want = project_rows_plain(t(b), t(c), t(dia), cap, 18, True)
-    assert project_rows.launches == before
+    assert launches['project_rows'] == before
     assert torch.equal(got, want)
 
 
@@ -325,11 +350,11 @@ def test_kernel_matches_plain_on_card(dtype, tol, has_sat, rows, n):
     cap = t(sat / scaling) if has_sat else torch.zeros(rows, dtype=dtype,
                                                        device='cuda')
     steps = tproj.section_steps(dtype)
-    before = project_rows.launches
+    before = launches['project_rows']
     got = project_rows(t(b), t(c), t(dia), cap, steps, has_sat)
     want = project_rows_plain(t(b), t(c), t(dia), cap, steps, has_sat)
     torch.cuda.synchronize()
-    assert project_rows.launches == before + 1
+    assert launches['project_rows'] == before + 1
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= tol
 
@@ -406,12 +431,12 @@ def test_long_rows_on_card_match_plain(dtype, tol, has_sat, rows, n, path):
     chosen, scratch, blocks = launch_plan(rows, n, dtype, path, 0)
     assert chosen == ('rows' if path == 'rows' else 'grid')
     assert (scratch > 0 and blocks > rows) == (chosen == 'grid')
-    before = project_rows.launches, project_rows.grid_launches
+    before = launches['project_rows'], launches['project_rows.grid']
     got = project_rows(t(b), t(c), t(dia), cap, steps, has_sat, path=path)
     want = project_rows_plain(t(b), t(c), t(dia), cap, steps, has_sat)
     torch.cuda.synchronize()
-    assert project_rows.launches == before[0] + 1
-    assert project_rows.grid_launches == before[1] + (chosen == 'grid')
+    assert launches['project_rows'] == before[0] + 1
+    assert launches['project_rows.grid'] == before[1] + (chosen == 'grid')
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= tol
     np.testing.assert_allclose(got.double().sum(-1).cpu().numpy(), b,
@@ -499,12 +524,12 @@ def test_bisect_on_cpu_is_bit_equal_to_the_plain_ladder(dtype, has_sat,
     b, c, dia, scaling, sat = _long_rows(rows, n)
     t = lambda a: torch.as_tensor(a, dtype=getattr(torch, dtype))
     q = t(sat) if has_sat else None
-    before = project_guided_rows.launches
+    before = launches['project_guided_rows']
     x = tproj.project('bisect', t(b), t(c), t(dia), t(scaling),
                       sat_level=q, has_sat=has_sat)
     want = tproj._guided_root(t(b), t(c), t(dia), t(scaling), q, has_sat,
                               None)[0]
-    assert project_guided_rows.launches == before
+    assert launches['project_guided_rows'] == before
     assert torch.equal(x, want)
     assert hashlib.sha256(x.numpy().tobytes()).hexdigest()[:16] \
         == BISECT_CPU_PINS[(dtype, has_sat, rows, n)]
@@ -522,7 +547,7 @@ def test_bisect_on_cpu_records_no_kernel_span():
     t = torch.as_tensor
     img, psf, _ = synthetic_star_field(40, 40, n_stars=4, psf_size=9,
                                        fwhm=2.0, seed=3)
-    before = project_guided_rows.launches
+    before = launches['project_guided_rows']
     with observability.tracing() as trace:
         with observability.span('projection'):
             tproj.project('bisect', t(b), t(c), t(dia), t(scaling))
@@ -530,7 +555,7 @@ def test_bisect_on_cpu_records_no_kernel_span():
                           stop_criterion=1, MAXIT=5, device='cpu')
     assert trace.get('projection').count >= 7
     assert trace.get('projection.kernel').count == 0
-    assert project_guided_rows.launches == before
+    assert launches['project_guided_rows'] == before
 
 
 def test_guided_kernel_refuses_cpu_tensors():
@@ -539,10 +564,10 @@ def test_guided_kernel_refuses_cpu_tensors():
     from tpu_sgp_torch.kernels.flux_projection import project_guided_rows
     b, c, dia, _, _ = _long_rows(1, 4097)
     t = torch.as_tensor
-    before = project_guided_rows.launches
+    before = launches['project_guided_rows']
     with pytest.raises(ValueError, match='CUDA tensors'):
         project_guided_rows(t(b), t(c), t(dia), None, 5, False)
-    assert project_guided_rows.launches == before
+    assert launches['project_guided_rows'] == before
 
 
 def _both_routes(b, c, dia, scaling, sat, dtype, has_sat):
@@ -551,12 +576,12 @@ def _both_routes(b, c, dia, scaling, sat, dtype, has_sat):
     from tpu_sgp_torch.kernels.flux_projection import project_guided_rows
     t = lambda a: torch.as_tensor(a, dtype=dtype, device='cuda')
     args = t(b), t(c), t(dia), t(scaling), t(sat) if has_sat else None
-    before = project_guided_rows.launches
+    before = launches['project_guided_rows']
     got = tproj._guided_root_kernel(*args, has_sat, None)
-    launches = project_guided_rows.launches - before
+    launched = launches['project_guided_rows'] - before
     want = tproj._guided_root(*args, has_sat, None)
     torch.cuda.synchronize()
-    return got, want, launches
+    return got, want, launched
 
 
 def _check_routes(got, want, b, dtype):
@@ -773,16 +798,16 @@ def test_frame_sgp_on_card_through_each_route(monkeypatch):
         return tpu_sgp_torch.sgp(img, psf, 150.0, init_recon=2, proj_type=1,
                                  stop_criterion=3, tol_convergence=1e-5)
 
-    before = project_guided_rows.launches
+    before = launches['project_guided_rows']
     with observability.tracing() as trace:
         x, iters = solve()[:2]
     spans = trace.get('projection').count
     assert spans > iters
     assert trace.get('projection.kernel').count == spans
-    assert project_guided_rows.launches - before == spans
+    assert launches['project_guided_rows'] - before == spans
     monkeypatch.setattr(tproj, 'guided_route', lambda *a, **k: 'plain')
     xp, iters_p = solve()[:2]
-    assert project_guided_rows.launches - before == spans
+    assert launches['project_guided_rows'] - before == spans
     assert abs(int(iters) - int(iters_p)) <= 3, (iters, iters_p)
     for got in (x, xp):
         assert abs(float(got.sum(dtype=np.float64)) / flux - 1) <= 1e-4

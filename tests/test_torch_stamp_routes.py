@@ -19,6 +19,7 @@ import tpu_sgp_torch as tsgp
 from tpu_sgp_torch.convert import config_from_jax
 from tpu_sgp_torch.experimental.pallas_batch import (solve_stamps_pallas,
                                                      stamp_rows)
+from tpu_sgp_torch.kernels import launches
 from tpu_sgp_torch.kernels.stamp_solver import (MAX_PIXELS, MAX_THREADS,
                                                 SMEM_PER_BLOCK, apply_operator,
                                                 card_block, route_plan,
@@ -202,10 +203,10 @@ def test_no_stamps_on_a_transposed_route_on_card():
                              proj_type=1, has_flux=True, has_sat_level=True,
                              dtype=str(dtype).removeprefix('torch.'))
         assert stamp_solver_plan(240, 17, dtype).transposed
-        before = solve_rows.launches
+        before = launches['solve_rows']
         x, it = solve_rows(empty, empty, lanes, lanes, taps, cfg)
         assert tuple(x.shape) == (0, 4080) and tuple(it.shape) == (0,)
-        assert solve_rows.launches == before
+        assert launches['solve_rows'] == before
         assert tuple(apply_operator(empty, taps, 1).shape) == (0, 4080)
 
 

@@ -18,6 +18,7 @@ import tpu_sgp_torch as tsgp
 from tpu_sgp_torch.convert import config_from_jax, state_from_numpy
 from tpu_sgp_torch.experimental.pallas_batch import (solve_stamps_pallas,
                                                      stamp_rows)
+from tpu_sgp_torch.kernels import launches
 from tpu_sgp_torch.kernels.stamp_solver import (apply_operator,
                                                 apply_operator_plain,
                                                 solve_rows, solve_rows_plain,
@@ -144,13 +145,13 @@ def test_backgrounds_per_pixel_and_tensors_stay_on_their_device():
     is the plain version, bit for bit, and launches nothing."""
     stamps, psf, bkgs, fluxes = _stamps(3, 16)
     cfg = tsgp.SGPConfig(**dict(SCOPE, max_iter=8))
-    before = solve_rows.launches
+    before = launches['solve_rows']
     x, it = solve_stamps_pallas(torch.as_tensor(stamps), psf, bkgs, fluxes,
                                 SAT, cfg)
     per_pixel = np.repeat(bkgs, 256).reshape(stamps.shape)
     x2, it2 = solve_stamps_pallas(stamps, psf, per_pixel, fluxes, SAT, cfg,
                                   device='cpu')
-    assert x.device.type == 'cpu' and solve_rows.launches == before
+    assert x.device.type == 'cpu' and launches['solve_rows'] == before
     assert torch.equal(x, x2) and torch.equal(it, it2)
     rows = stamp_rows(stamps, psf, bkgs, fluxes, SAT, torch.float32,
                       torch.device('cpu'))
@@ -290,10 +291,11 @@ def test_kernel_matches_plain_on_card(dtype, size, b):
         kw.update(stop_criterion=1, max_iter=20)
     cfg = tsgp.SGPConfig(**kw)
     route = stamp_solver_plan(*psf.shape, cfg.torch_dtype).route
-    before, on_route = solve_rows.launches, solve_rows.routes[route]
+    before = launches['solve_rows']
+    on_route = launches[f'solve_rows/{route}']
     x, it = solve_stamps_pallas(stamps, psf, bkgs, fluxes, SAT, cfg)
-    assert x.is_cuda and solve_rows.launches == before + 1
-    assert solve_rows.routes[route] == on_route + 1
+    assert x.is_cuda and launches['solve_rows'] == before + 1
+    assert launches[f'solve_rows/{route}'] == on_route + 1
     rows = stamp_rows(stamps, psf, bkgs, fluxes, SAT, cfg.torch_dtype,
                       torch.device('cuda'))
     xp, ip = solve_rows_plain(*rows, cfg)
@@ -337,11 +339,11 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
     cfg1 = tsgp.SGPConfig(**dict(SCOPE, stop_criterion=1, max_iter=20))
     rows = stamp_rows(*shaped_star_stamps(4, 4, 1024, seed=5), SAT,
                       torch.float32, torch.device('cuda'))
-    before = solve_rows.launches
+    before = launches['solve_rows']
     x, it = solve_rows(*rows, cfg1)
     xp, ip = solve_rows_plain(*rows, cfg1)
-    assert solve_rows.launches == before + 1
-    assert solve_rows.routes['Patch<float>'] >= 1
+    assert launches['solve_rows'] == before + 1
+    assert launches['solve_rows/Patch<float>'] >= 1
     assert torch.equal(it, ip)
     # within test_kernel_matches_plain_on_card's max
     rel = _lane_rel(x.cpu().numpy(), xp.cpu().numpy())
@@ -349,7 +351,7 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match='4x1024'):
         solve_rows(*(t.double() for t in rows),
                    tsgp.SGPConfig(**dict(SCOPE, dtype='float64')))
-    assert solve_rows.launches == before + 1
+    assert launches['solve_rows'] == before + 1
 
 
 def f32_spread_report(seeds=(3, 4, 5, 6), repeats=2):

@@ -4,21 +4,19 @@ projection of ONE image through the kernel K1.
 The JAX module's ``project_df_pallas`` takes one image of any shape and a
 scalar flux, lays the pixels out in (rows, 128) lane tiles padded with
 pixels that add nothing to a sum, and runs its Pallas kernel over them.
-Here the image's pixels are one row of K1
-(``kernels/flux_projection.py::project_rows``): on a CUDA tensor the
+Here the image's pixels are one row of the batched (B, N) form that the
+solver calls, ``projection.flux_projection.project_df_pallas``, which runs
+K1 (``kernels/flux_projection.py::project_rows``): on a CUDA tensor the
 kernel (an image above 2048 pixels takes its grid path, split over the
-card's SMs), on a CPU tensor its plain version. The solver calls the
-batched (B, N) form, ``projection.flux_projection.project_df_pallas``.
+card's SMs), on a CPU tensor its plain version.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from ..device import resolve_device
-from ..kernels.flux_projection import _K, project_rows
-from ..projection.flux_projection import _cap, _per_row, bracket_bits
+from ..kernels.flux_projection import section_steps
+from ..projection import flux_projection
 
 
 def project_df_pallas(b, c, dia, scaling, sat_level=None,
@@ -36,14 +34,14 @@ def project_df_pallas(b, c, dia, scaling, sat_level=None,
     c = torch.as_tensor(c, device=resolve_device(None, c))
     if has_sat is None:
         has_sat = sat_level is not None
-    if n_iters is None:
-        n_iters = bracket_bits(c.dtype)
-    n_steps = int(math.ceil(n_iters / math.log2(_K + 1)))
-    row = c.reshape(1, -1).contiguous()
-    dia = torch.as_tensor(dia, dtype=c.dtype, device=c.device)
-    cap = (_cap(sat_level, scaling, row) if has_sat
-           else torch.zeros(1, dtype=c.dtype, device=c.device))
-    x = project_rows(_per_row(b, row).contiguous(), row,
-                     dia.expand(c.shape).reshape(1, -1).contiguous(),
-                     cap.contiguous(), n_steps, has_sat)
+
+    def row(v):
+        return torch.as_tensor(v, dtype=c.dtype, device=c.device).reshape(1)
+
+    x = flux_projection.project_df_pallas(
+        row(b), c.reshape(1, -1),
+        torch.as_tensor(dia, dtype=c.dtype, device=c.device).expand(
+            c.shape).reshape(1, -1),
+        row(scaling), row(sat_level) if has_sat else None, has_sat,
+        section_steps(c.dtype, n_iters))
     return x.reshape(c.shape)

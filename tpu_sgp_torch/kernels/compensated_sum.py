@@ -15,15 +15,14 @@ from N alone; ``ff_sum_plan`` asks it.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
 from .. import observability
+from . import _build
 
-_ENTRY = {torch.float32: 'tpu_sgp_ff_sum_f32',
-          torch.float64: 'tpu_sgp_ff_sum_f64'}
+_ARGS = (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 2 + (ctypes.c_longlong,)
 
 
 def ff_sum_plan(n: int, dtype: torch.dtype = torch.float32) -> tuple:
@@ -34,27 +33,9 @@ def ff_sum_plan(n: int, dtype: torch.dtype = torch.float32) -> tuple:
     length the kernel does not take."""
     if not 0 < n < 2 ** 31:
         raise ValueError(f'unsupported row length n={n}')
-    from ._build import load_library
-    fn = load_library('compensated_sum').tpu_sgp_ff_sum_plan
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
-    fn.restype = ctypes.c_int
-    cols, levels, chunk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = fn(n, int(dtype == torch.float64), ctypes.byref(cols),
-             ctypes.byref(levels), ctypes.byref(chunk))
-    if err != 0:
-        raise RuntimeError(f'compensated sum plan failed for n={n}: CUDA '
-                           f'error {err}')
-    return cols.value, levels.value, chunk.value
-
-
-@functools.cache
-def _entry(dtype: torch.dtype):
-    from ._build import load_library
-    fn = getattr(load_library('compensated_sum'), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.query('compensated_sum', 'tpu_sgp_ff_sum_plan', n,
+                        int(dtype == torch.float64), outs=(ctypes.c_int,) * 3,
+                        what=f'compensated sum plan failed for n={n}')
 
 
 def ff_sum_rows(x: torch.Tensor) -> torch.Tensor:
@@ -63,34 +44,27 @@ def ff_sum_rows(x: torch.Tensor) -> torch.Tensor:
     bit-equal to ``ops.reduce.tree_sum_ff``. The leading axes are flattened
     (a view where the strides allow). Raises on a CPU tensor, another
     dtype, a row that is empty or not of unit stride, or sizes beyond a C
-    int. ``ff_sum_rows.launches`` counts the launches; under tracing each
-    adds 1 to the counter ``ff_sum.launches`` of the innermost span."""
+    int. ``launches['ff_sum_rows']`` counts the launches; under tracing
+    each adds 1 to the counter ``ff_sum.launches`` of the innermost
+    span."""
     if not x.is_cuda:
         raise ValueError(f'the kernel takes CUDA tensors, got one on '
                          f'{x.device}; CPU tensors take the plain tree')
-    if x.dtype not in _ENTRY:
-        raise TypeError(f'the kernel takes float32 or float64, got {x.dtype}')
     if x.dim() == 0:
         raise ValueError('x must have a last axis to sum')
     n, rows = x.shape[-1], math.prod(x.shape[:-1])
-    if not 0 < n < 2 ** 31 or rows >= 2 ** 31:
-        raise ValueError(f'unsupported size: {rows} rows of {n}')
-    if n > 1 and x.stride(-1) != 1:
-        raise ValueError(f'the rows must have unit stride, got stride '
-                         f'{x.stride(-1)}')
-    rows2 = x.reshape(rows, n)
+    _build.check_operands('x', x=(x, None), unit_stride=True,
+                          sizes=(('rows', rows, 0), ('row length', n, 1)))
+    flat = x.dim() == 2                 # (rows, n) already: no reshapes
+    rows2 = x if flat else x.reshape(rows, n)
     out = torch.empty(rows, dtype=x.dtype, device=x.device)
     if rows == 0:
         return out.reshape(x.shape[:-1])
-    err = _entry(x.dtype)(rows2.data_ptr(), out.data_ptr(), rows, n,
-                          rows2.stride(0), x.device.index,
-                          torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'compensated sum kernel launch failed ({rows} '
-                           f'rows of {n}): CUDA error {err}')
-    ff_sum_rows.launches += 1
+    _build.launch(_build.kernel('compensated_sum', 'tpu_sgp_ff_sum', x.dtype,
+                                _ARGS), x.device,
+                  rows2.data_ptr(), out.data_ptr(), rows, n, rows2.stride(0),
+                  what=f'compensated sum kernel launch failed ({rows} rows '
+                       f'of {n})',
+                  count=('ff_sum_rows',))
     observability.count('ff_sum.launches', 1)
-    return out.reshape(x.shape[:-1])
-
-
-ff_sum_rows.launches = 0
+    return out if flat else out.reshape(x.shape[:-1])

@@ -1,4 +1,5 @@
-"""Batched flux-conserving projection: CUDA kernel wrapper and plain twin.
+"""Batched flux-conserving projection: CUDA kernel wrapper, plain twin and
+the schedule both run.
 
 Replaces the Pallas kernel ``_kernel`` / ``project_df_pallas``
 (``tpu_sgp/experimental/pallas_projection.py:40-122``). For each row of a
@@ -24,11 +25,33 @@ which rows it takes.
 from __future__ import annotations
 
 import ctypes
-import functools
+import math
 
 import torch
 
+from . import _build
+
 _K = 7  # interior section points per step (pallas_projection.py:35)
+
+
+def bracket_bits(dtype: torch.dtype) -> int:
+    """Bracket-narrowing budget in bits (``flux_projection.py:244-252``):
+    enough to push the bracket below the dtype's resolution."""
+    return 54 if dtype == torch.float64 else 28
+
+
+def section_steps(dtype: torch.dtype, bits: int | None = None) -> int:
+    """Sectioning steps of 3 bits each that narrow the bracket by ``bits``
+    (``pallas_projection.py:80-82``; default ``bracket_bits``: 10 steps in
+    float32, 18 in float64)."""
+    bits = bracket_bits(dtype) if bits is None else bits
+    return int(math.ceil(bits / math.log2(_K + 1)))
+
+
+def newton_passes(dtype: torch.dtype) -> int:
+    """Main passes of the guided secant (``flux_projection.py:361-380``):
+    5 in float32, 8 in float64."""
+    return 8 if dtype == torch.float64 else 5
 
 
 def project_rows_plain(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
@@ -58,51 +81,15 @@ def project_rows_plain(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
     return xval(0.5 * (lo + hi))
 
 
-_ENTRY = {torch.float32: 'tpu_sgp_project_rows_f32',
-          torch.float64: 'tpu_sgp_project_rows_f64'}
-
-
-def _check_operands(c: torch.Tensor, n_steps: int, **given) -> tuple:
-    """What both launchers check before a launch: ``c`` (B, N) in float32
-    or float64; each of ``given`` (``dia`` (B, N), the others (B,)) on
-    ``c``'s device in its dtype; all contiguous; the sizes and the step
-    count within a C int. Returns (B, N)."""
-    if c.dim() != 2:
-        raise ValueError(f'c must be (B, N), got shape {tuple(c.shape)}')
-    rows, n = c.shape
-    if c.dtype not in _ENTRY:
-        raise TypeError(f'the kernel takes float32 or float64, got {c.dtype}')
-    for name, t in given.items():
-        shape = (rows, n) if name == 'dia' else (rows,)
-        if t.device != c.device or t.dtype != c.dtype:
-            raise TypeError(f'{name} is {t.dtype} on {t.device}; c is '
-                            f'{c.dtype} on {c.device}')
-        if tuple(t.shape) != shape:
-            raise ValueError(f'{name} must have shape {shape}, got '
-                             f'{tuple(t.shape)}')
-    for name, t in (('c', c), *given.items()):
-        if not t.is_contiguous():
-            raise ValueError(f'{name} must be contiguous')
-    if not 0 < n < 2 ** 31 or not 0 <= n_steps < 2 ** 31:
-        raise ValueError(f'unsupported size n={n}, n_steps={n_steps}')
-    return rows, n
+_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
 # which kernel serves a launch: the launcher's own rule, or one path forced
 # for a measurement ('rows': one warp or one block a row; 'grid': a long
 # row split over many blocks)
 _PATHS = {'auto': 0, 'rows': 1, 'grid': 2}
+_PLAN_OUTS = (ctypes.c_int, ctypes.c_longlong, ctypes.c_int)
 
 
-@functools.cache
-def _entry(dtype: torch.dtype):
-    from ._build import load_library
-    fn = getattr(load_library('flux_projection'), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
+@_build.cached
 def launch_plan(rows: int, n: int, dtype: torch.dtype, path: str = 'auto',
                 device: int = 0) -> tuple:
     """What the launcher does with a (rows, n) batch on ``device``:
@@ -110,21 +97,11 @@ def launch_plan(rows: int, n: int, dtype: torch.dtype, path: str = 'auto',
     warp or one block a row) or ``'grid'`` (each row split over many
     blocks, all resident at once). ``'auto'`` takes the grid path for rows
     above 2048 pixels whose blocks all fit on the card together."""
-    from ._build import load_library
-    fn = load_library('flux_projection').tpu_sgp_project_rows_plan
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int),
-                                        ctypes.POINTER(ctypes.c_longlong),
-                                        ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    chosen, scratch, blocks = ctypes.c_int(), ctypes.c_longlong(), \
-        ctypes.c_int()
-    err = fn(rows, n, int(dtype == torch.float64), _PATHS[path], device,
-             ctypes.byref(chosen), ctypes.byref(scratch),
-             ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError(f'flux projection launch plan failed: CUDA '
-                           f'error {err}')
-    return ('rows', 'grid')[chosen.value - 1], scratch.value, blocks.value
+    chosen, scratch, blocks = _build.query(
+        'flux_projection', 'tpu_sgp_project_rows_plan', rows, n,
+        int(dtype == torch.float64), _PATHS[path], device, outs=_PLAN_OUTS,
+        what='flux projection launch plan failed')
+    return ('rows', 'grid')[chosen - 1], scratch, blocks
 
 
 def project_rows(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
@@ -138,72 +115,52 @@ def project_rows(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
     2048 pixels (one whole frame), each row split over many blocks
     (``launch_plan``). ``path`` forces one of the two for a measurement;
     a grid path that does not fit on the card raises.
-    ``project_rows.launches`` counts the launches and
-    ``project_rows.grid_launches`` those that took the grid path."""
+    ``launches['project_rows']`` counts the launches and
+    ``launches['project_rows.grid']`` those that took the grid path."""
     if not c.is_cuda:
         return project_rows_plain(b, c, dia, cap, n_steps, has_sat)
-    rows, n = _check_operands(c, n_steps, dia=dia, b=b, cap=cap)
+    dims = _build.check_operands(
+        'c', c=(c, 'BN'), dia=(dia, 'BN'), b=(b, 'B'), cap=(cap, 'B'),
+        sizes=(('n', 'N', 1), ('n_steps', n_steps, 0)))
+    rows, n = dims['B'], dims['N']
     out = torch.empty_like(c)
     if rows == 0:
         return out
+    device = c.device
     chosen, scratch_len, _ = launch_plan(rows, n, c.dtype, path,
-                                         c.device.index)
-    scratch = torch.empty(scratch_len, dtype=c.dtype, device=c.device)
-    stream = torch.cuda.current_stream(c.device)
-    err = _entry(c.dtype)(b.data_ptr(), c.data_ptr(), dia.data_ptr(),
-                          cap.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                          rows, n, n_steps, int(has_sat), _PATHS[chosen],
-                          c.device.index, stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'flux projection kernel launch failed ({chosen} '
-                           f'path, {rows} rows of {n}): CUDA error {err}')
-    project_rows.launches += 1
-    project_rows.grid_launches += chosen == 'grid'
+                                         device.index)
+    # the rows path takes no scratch (0 elements): a null pointer
+    scratch = (torch.empty(scratch_len, dtype=c.dtype, device=device)
+               if scratch_len else None)
+    _build.launch(
+        _build.kernel('flux_projection', 'tpu_sgp_project_rows', c.dtype,
+                      _ARGS), device,
+        b.data_ptr(), c.data_ptr(), dia.data_ptr(), cap.data_ptr(),
+        out.data_ptr(), scratch.data_ptr() if scratch_len else None, rows,
+        n, n_steps, int(has_sat), _PATHS[chosen],
+        what=f'flux projection kernel launch failed ({chosen} path, {rows} '
+             f'rows of {n})',
+        count=('project_rows', 'project_rows.grid') if chosen == 'grid'
+        else ('project_rows',))
     return out
-
-
-project_rows.launches = 0
-project_rows.grid_launches = 0
 
 
 # the guided secant on long rows: rows longer than this take the grid (the
 # rule of launch_plan)
 GUIDED_MIN_N = 2048
-_GUIDED_ENTRY = {torch.float32: 'tpu_sgp_project_guided_rows_f32',
-                 torch.float64: 'tpu_sgp_project_guided_rows_f64'}
+_GUIDED_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4
 
 
-@functools.cache
-def _guided_entry(dtype: torch.dtype):
-    from ._build import load_library
-    fn = getattr(load_library('flux_projection'), _GUIDED_ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
+@_build.cached
 def guided_plan(rows: int, n: int, dtype: torch.dtype,
                 device: int = 0) -> tuple:
     """What a guided launch of (rows, n) needs on ``device``: ``(blocks,
     scratch elements, capacity)``, capacity being the blocks of the kernel
     that the card holds at once; it fits if blocks <= capacity."""
-    from ._build import load_library
-    fn = load_library('flux_projection').tpu_sgp_project_guided_plan
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int),
-                                        ctypes.POINTER(ctypes.c_longlong),
-                                        ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    blocks, scratch, capacity = ctypes.c_int(), ctypes.c_longlong(), \
-        ctypes.c_int()
-    err = fn(rows, n, int(dtype == torch.float64), device,
-             ctypes.byref(blocks), ctypes.byref(scratch),
-             ctypes.byref(capacity))
-    if err != 0:
-        raise RuntimeError(f'guided projection launch plan failed: CUDA '
-                           f'error {err}')
-    return blocks.value, scratch.value, capacity.value
+    return _build.query('flux_projection', 'tpu_sgp_project_guided_plan',
+                        rows, n, int(dtype == torch.float64), device,
+                        outs=_PLAN_OUTS,
+                        what='guided projection launch plan failed')
 
 
 def guided_route(rows: int, n: int, dtype: torch.dtype, device,
@@ -216,7 +173,7 @@ def guided_route(rows: int, n: int, dtype: torch.dtype, device,
     more long rows than the card holds. ``plan``, ``(blocks, capacity)``,
     is the card's ``guided_plan`` unless given."""
     device = torch.device(device)
-    if (sharded or device.type != 'cuda' or dtype not in _GUIDED_ENTRY
+    if (sharded or device.type != 'cuda' or dtype not in _build.FLOATS
             or n <= GUIDED_MIN_N):
         return 'plain'
     if plan is None:
@@ -238,30 +195,29 @@ def project_guided_rows(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
     ``has_sat``. Returns ``(x, lam)``.
 
     CUDA tensors only; a launch that fails (a grid larger than the card
-    holds at once) raises. ``project_guided_rows.launches`` counts the
+    holds at once) raises. ``launches['project_guided_rows']`` counts the
     launches."""
     if not c.is_cuda:
         raise ValueError('the guided kernel runs on CUDA tensors; CPU '
                          'tensors take the plain ladder')
-    rows, n = _check_operands(c, n_passes, dia=dia, b=b,
-                              **({'cap': cap} if has_sat else {}))
+    dims = _build.check_operands(
+        'c', c=(c, 'BN'), dia=(dia, 'BN'), b=(b, 'B'),
+        **({'cap': (cap, 'B')} if has_sat else {}),
+        sizes=(('n', 'N', 1), ('n_passes', n_passes, 0)))
+    rows, n = dims['B'], dims['N']
     out = torch.empty_like(c)
     lam = torch.empty(rows, dtype=c.dtype, device=c.device)
     if rows == 0:
         return out, lam
-    _, scratch_len, _ = guided_plan(rows, n, c.dtype, c.device.index)
-    scratch = torch.empty(scratch_len, dtype=c.dtype, device=c.device)
-    stream = torch.cuda.current_stream(c.device)
-    err = _guided_entry(c.dtype)(
+    device = c.device
+    _, scratch_len, _ = guided_plan(rows, n, c.dtype, device.index)
+    scratch = torch.empty(scratch_len, dtype=c.dtype, device=device)
+    _build.launch(
+        _build.kernel('flux_projection', 'tpu_sgp_project_guided_rows',
+                      c.dtype, _GUIDED_ARGS), device,
         b.data_ptr(), c.data_ptr(), dia.data_ptr(),
         cap.data_ptr() if has_sat else None, out.data_ptr(), lam.data_ptr(),
-        scratch.data_ptr(), rows, n, n_passes, int(has_sat), c.device.index,
-        stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'guided projection kernel launch failed ({rows} '
-                           f'rows of {n}): CUDA error {err}')
-    project_guided_rows.launches += 1
+        scratch.data_ptr(), rows, n, n_passes, int(has_sat),
+        what=f'guided projection kernel launch failed ({rows} rows of {n})',
+        count=('project_guided_rows',))
     return out, lam
-
-
-project_guided_rows.launches = 0

@@ -42,7 +42,6 @@ raises, it never falls back.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import functools
@@ -51,7 +50,8 @@ import torch
 
 from ..config import SGPConfig
 from ..ops.psf_operator import build_circulant_matrix
-from ..projection.flux_projection import bracket_bits
+from . import _build
+from .flux_projection import bracket_bits
 
 # the dense operator's own limit (tpu_sgp/ops/psf_operator.py:38-40)
 MAX_PIXELS = 4096
@@ -351,32 +351,12 @@ class _Params(ctypes.Structure):
             'alpha_max', 'tau_init')]
 
 
-_ENTRY = {torch.float32: 'tpu_sgp_solve_stamps_f32',
-          torch.float64: 'tpu_sgp_solve_stamps_f64'}
-_OPERATOR_ENTRY = {torch.float32: 'tpu_sgp_apply_operator_f32',
-                   torch.float64: 'tpu_sgp_apply_operator_f64'}
-
-
-@functools.cache
-def _entry(dtype: torch.dtype):
-    from ._build import load_library
-    fn = getattr(load_library('stamp_solver'), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
-                                           ctypes.POINTER(_Params),
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _operator_entry(dtype: torch.dtype):
-    from ._build import load_library
-    fn = getattr(load_library('stamp_solver'), _OPERATOR_ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int, ctypes.POINTER(_Params),
+                                  ctypes.c_int)
+_OPERATOR_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5 + (
+    ctypes.POINTER(ctypes.c_int),)
+_ROUTE_ARGS = (ctypes.c_int,) * 5 + (ctypes.POINTER(ctypes.c_int),) * 3 + (
+    ctypes.c_char_p, ctypes.c_int)
 
 
 @functools.cache
@@ -394,16 +374,6 @@ def device_plan(h: int, w: int, dtype: torch.dtype,
     return stamp_solver_plan(h, w, dtype, _smem_limit(device.index))
 
 
-@functools.cache
-def _route_entry():
-    from ._build import load_library
-    fn = load_library('stamp_solver').tpu_sgp_stamp_solver_route
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3 \
-        + [ctypes.c_char_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def card_block(design: str, h: int, w: int, dtype: torch.dtype,
                device: int = 0):
     """The card's own account of ``design``'s block for h x w stamps of
@@ -414,10 +384,11 @@ def card_block(design: str, h: int, w: int, dtype: torch.dtype,
     The card's checks hold ``route_plan`` to it."""
     threads, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     name = ctypes.create_string_buffer(128)
-    err = _route_entry()(int(dtype == torch.float64), _DESIGN_CODE[design],
-                         h, w, device, ctypes.byref(threads),
-                         ctypes.byref(smem), ctypes.byref(blocks), name,
-                         len(name))
+    fn = _build.entry('stamp_solver', 'tpu_sgp_stamp_solver_route',
+                      _ROUTE_ARGS)
+    err = fn(int(dtype == torch.float64), _DESIGN_CODE[design], h, w,
+             device, ctypes.byref(threads), ctypes.byref(smem),
+             ctypes.byref(blocks), name, len(name))
     if err == 1:                                # cudaErrorInvalidValue
         return None
     if err != 0:
@@ -427,21 +398,15 @@ def card_block(design: str, h: int, w: int, dtype: torch.dtype,
                 blocks_per_sm=blocks.value, instance=name.value.decode())
 
 
-def _check_rows(gn, bkg, flux, sat, taps) -> None:
-    if gn.dim() != 2 or taps.dim() != 2:
-        raise ValueError(f'gn must be (B, N) and taps (H, W), got '
-                         f'{tuple(gn.shape)} and {tuple(taps.shape)}')
-    rows, n = gn.shape
+def _check_stamps(ref: str, taps: torch.Tensor, **rows) -> None:
+    """``_build.check_operands`` on ``rows`` and the (H, W) ``taps``, and
+    the dense operator's limit: H * W = N <= ``MAX_PIXELS``."""
+    n = _build.check_operands(ref, **rows, taps=(taps, 'HW'))['N']
     if taps.numel() != n:
         raise ValueError(f'taps {tuple(taps.shape)} do not cover N={n}')
     if n > MAX_PIXELS:
         raise ValueError(f'stamps of {n} pixels exceed the dense '
                          f'operator\'s {MAX_PIXELS}')
-    for name, t, shape in (('bkg', bkg, (rows, n)), ('flux', flux, (rows,)),
-                           ('sat', sat, (rows,))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f'{name} must have shape {shape}, got '
-                             f'{tuple(t.shape)}')
 
 
 def solve_rows(gn: torch.Tensor, bkg: torch.Tensor, flux: torch.Tensor,
@@ -453,25 +418,13 @@ def solve_rows(gn: torch.Tensor, bkg: torch.Tensor, flux: torch.Tensor,
     CPU tensors take ``solve_rows_plain``. CUDA tensors launch the kernel,
     one thread block per row and the whole batch in one launch, on the
     route ``stamp_solver_plan`` picks from the taps' shape and the card's
-    shared memory;
-    ``solve_rows.launches`` counts the launches and ``solve_rows.routes``
-    them by route."""
+    shared memory; ``launches['solve_rows']`` counts the launches and
+    ``launches['solve_rows/<route>']`` them by route."""
     check_scope(cfg)
-    _check_rows(gn, bkg, flux, sat, taps)
+    _check_stamps('gn', taps, gn=(gn, 'BN'), bkg=(bkg, 'BN'),
+                  flux=(flux, 'B'), sat=(sat, 'B'))
     if not gn.is_cuda:
         return solve_rows_plain(gn, bkg, flux, sat, taps, cfg)
-    if gn.dtype not in _ENTRY:
-        raise TypeError(f'the kernel takes float32 or float64, got '
-                        f'{gn.dtype}')
-    for name, t in (('bkg', bkg), ('flux', flux), ('sat', sat),
-                    ('taps', taps)):
-        if t.device != gn.device or t.dtype != gn.dtype:
-            raise TypeError(f'{name} is {t.dtype} on {t.device}; gn is '
-                            f'{gn.dtype} on {gn.device}')
-    for name, t in (('gn', gn), ('bkg', bkg), ('flux', flux), ('sat', sat),
-                    ('taps', taps)):
-        if not t.is_contiguous():
-            raise ValueError(f'{name} must be contiguous')
     plan = device_plan(*taps.shape, gn.dtype, gn.device)
     launch = functools.partial(_launch, plan=plan)
     if plan.transposed:
@@ -490,22 +443,16 @@ def _launch(gn, bkg, flux, sat, taps, cfg, *, plan):
                   cfg.max_backtracks, bracket_bits(gn.dtype),
                   cfg.tol_convergence, cfg.gamma, cfg.bt_factor,
                   cfg.alpha_init, cfg.alpha_min, cfg.alpha_max, cfg.tau_init)
-    stream = torch.cuda.current_stream(gn.device)
-    err = _entry(gn.dtype)(gn.data_ptr(), bkg.data_ptr(), flux.data_ptr(),
-                           sat.data_ptr(), taps.data_ptr(), x.data_ptr(),
-                           iters.data_ptr(), rows, ctypes.byref(prm),
-                           _DESIGN_CODE[plan.design], gn.device.index,
-                           stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'stamp solver kernel launch failed on route '
-                           f'{plan.route} ({h}x{w}): CUDA error {err}')
-    solve_rows.launches += 1
-    solve_rows.routes[plan.route] += 1
+    _build.launch(_build.kernel('stamp_solver', 'tpu_sgp_solve_stamps',
+                                gn.dtype, _ARGS), gn.device,
+                  gn.data_ptr(), bkg.data_ptr(), flux.data_ptr(),
+                  sat.data_ptr(), taps.data_ptr(), x.data_ptr(),
+                  iters.data_ptr(), rows, ctypes.byref(prm),
+                  _DESIGN_CODE[plan.design],
+                  what=f'stamp solver kernel launch failed on route '
+                       f'{plan.route} ({h}x{w})',
+                  count=('solve_rows', f'solve_rows/{plan.route}'))
     return x, iters
-
-
-solve_rows.launches = 0
-solve_rows.routes = collections.Counter()
 
 
 def apply_operator_plain(x: torch.Tensor, taps: torch.Tensor,
@@ -527,20 +474,11 @@ def apply_operator(x: torch.Tensor, taps: torch.Tensor,
     than the solver keeps (``apply_operator.resident`` holds that count
     after a launch). It measures the operator's share of the kernel's time;
     the solver never calls it. CPU tensors take ``apply_operator_plain``."""
-    if x.dim() != 2 or taps.dim() != 2 or taps.numel() != x.shape[1]:
-        raise ValueError(f'x must be (B, N) and taps (H, W) with H*W = N, '
-                         f'got {tuple(x.shape)} and {tuple(taps.shape)}')
-    if x.shape[1] > MAX_PIXELS or reps < 0:
-        raise ValueError(f'unsupported N={x.shape[1]} or reps={reps}')
+    _check_stamps('x', taps, x=(x, 'BN'))
+    if reps < 0:
+        raise ValueError(f'unsupported reps={reps}')
     if not x.is_cuda:
         return apply_operator_plain(x, taps, reps)
-    if x.dtype not in _OPERATOR_ENTRY or taps.dtype != x.dtype \
-            or taps.device != x.device:
-        raise TypeError(f'x and taps must be float32 or float64 on one '
-                        f'device, got {x.dtype} and {taps.dtype} on '
-                        f'{taps.device}')
-    if not (x.is_contiguous() and taps.is_contiguous()):
-        raise ValueError('x and taps must be contiguous')
     h, w = taps.shape
     plan = device_plan(h, w, x.dtype, x.device)
     if plan.transposed:
@@ -548,16 +486,14 @@ def apply_operator(x: torch.Tensor, taps: torch.Tensor,
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
-    stream = torch.cuda.current_stream(x.device)
     resident = ctypes.c_int()
-    err = _operator_entry(x.dtype)(x.data_ptr(), taps.data_ptr(),
-                                   out.data_ptr(), x.shape[0], *taps.shape,
-                                   reps, _DESIGN_CODE[plan.design],
-                                   ctypes.byref(resident), x.device.index,
-                                   stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'operator kernel launch failed on route '
-                           f'{plan.route}: CUDA error {err}')
+    _build.launch(_build.kernel('stamp_solver', 'tpu_sgp_apply_operator',
+                                x.dtype, _OPERATOR_ARGS), x.device,
+                  x.data_ptr(), taps.data_ptr(), out.data_ptr(),
+                  x.shape[0], *taps.shape, reps, _DESIGN_CODE[plan.design],
+                  ctypes.byref(resident),
+                  what=f'operator kernel launch failed on route '
+                       f'{plan.route}')
     apply_operator.resident = resident.value
     return transpose_rows(out, w, h) if plan.transposed else out
 

@@ -35,35 +35,17 @@ import math
 
 import torch
 
-from ..kernels.flux_projection import (guided_route, project_guided_rows,
-                                       project_rows)
+from ..kernels.flux_projection import (bracket_bits, guided_route,
+                                       newton_passes, project_guided_rows,
+                                       project_rows, section_steps)
 from ..observability import host_flag, span
 from ..ops.reduce import gmax, gmin, gsum
 
 METHODS = ('bisect', 'section', 'sort', 'secant', 'pallas')
-_K = 7      # section points per step of the kernel (pallas_projection.py:35)
 _K_PTS = 3  # interior points per step of 'section' (flux_projection.py:241)
 # under mesh axes: one collective a step, so fewer, wider steps
 # (flux_projection.py:297)
 _K_PTS_SHARDED = 7
-
-
-def bracket_bits(dtype: torch.dtype) -> int:
-    """Bracket-narrowing budget in bits (``flux_projection.py:244-252``):
-    enough to push the bracket below the dtype's resolution."""
-    return 54 if dtype == torch.float64 else 28
-
-
-def section_steps(dtype: torch.dtype) -> int:
-    """Sectioning steps of 3 bits each (``pallas_projection.py:80-82``):
-    10 in float32, 18 in float64."""
-    return int(math.ceil(bracket_bits(dtype) / math.log2(_K + 1)))
-
-
-def newton_passes(dtype: torch.dtype) -> int:
-    """Main passes of the guided secant (``flux_projection.py:361-380``):
-    5 in float32, 8 in float64."""
-    return 8 if dtype == torch.float64 else 5
 
 
 def check_method(method: str) -> None:
@@ -561,17 +543,21 @@ def project_df(b, c, dia, scaling, sat_level=None, max_projs: int = 1000,
 def project_df_pallas(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
                       scaling: torch.Tensor,
                       sat_level: torch.Tensor | None = None,
-                      has_sat: bool | None = None) -> torch.Tensor:
+                      has_sat: bool | None = None,
+                      n_steps: int | None = None) -> torch.Tensor:
     """Batched ``project_df_pallas`` (``pallas_projection.py:68-122``).
 
     ``c`` and ``dia`` are (B, N); ``b``, ``scaling`` and ``sat_level`` are
-    (B,). The cap is sat/scaling - eps per row (``:101-103``)."""
+    (B,). The cap is sat/scaling - eps per row (``:101-103``). ``n_steps``
+    sectioning steps of 7 points (default ``section_steps``)."""
     if has_sat is None:
         has_sat = sat_level is not None
+    if n_steps is None:
+        n_steps = section_steps(c.dtype)
     cap = _cap(sat_level, scaling, c) if has_sat else torch.zeros_like(b)
     return project_rows(b.contiguous(), c.contiguous(),
                         dia.expand_as(c).contiguous(), cap.contiguous(),
-                        section_steps(c.dtype), has_sat)
+                        n_steps, has_sat)
 
 
 def project(method: str, b, c, dia, scaling, sat_level=None,
