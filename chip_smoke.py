@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--from N]
 
-With ``--from N`` (13 to 44) phases 3 to N - 1 are skipped and no result is
+With ``--from N`` (13 to 45) phases 3 to N - 1 are skipped and no result is
 printed: a short run for work on the later phases. ``--rank ...`` is the
 entry of one rank of phases 31-33 (``rank_main``), which the script starts
 itself.
@@ -13,9 +13,9 @@ Phases, one line of output each (or a few):
      off for matrix products and convolutions;
   2. build: nvcc compiles ``tpu_sgp_torch/csrc/flux_projection.cu`` and
      ``tpu_sgp_torch/csrc/stamp_solver.cu`` (and
-     ``compensated_sum.cu``) side by side; their ptxas
-     reports (registers, spills) and resident blocks an SM, for every
-     instantiation;
+     ``compensated_sum.cu`` and ``beta_divergence.cu``) side by side;
+     their ptxas reports (registers, spills) and resident blocks an SM,
+     for every instantiation;
   3. the projection kernel against its plain PyTorch version on the same
      CUDA tensors, float32 and float64, with and without saturation, at the
      main path's (12288, 961) and at a ragged (7, 256); their times at the
@@ -198,6 +198,17 @@ Phases, one line of output each (or a few):
      (registers, spills, blocks an SM). The launches and iterations of
      the compensated sum in the kernels line are phase 15's, in the
      float32 facade solve.
+ 45. the beta objective with its d/dbeta row sums as one kernel
+     (``kernels.beta_divergence.beta_div_rows``) at the beta cell's
+     (12288, 961), float32 with the compensated tree (the cell's case) and
+     float64 without: against its plain version on the card (float32's
+     objective bit for bit, the rest within 1e-5 / 1e-12 of the sums of
+     |term|); its device time and the plain version's (calls in a CUDA
+     graph), its time a call through the wrapper (CUDA events), the
+     launches a call of each, its bound (bytes) and its ptxas line; then
+     the kernel's launches in one beta ``restore_stamps`` of phase 4's
+     12288 stamps on the 'beta section' path, against its objective
+     evaluations.
 
 Then a JSON line of the kernels (K2's entry lists the routes it launched,
 each with its launches, time and bound), the ``nvidia-smi`` line, and last
@@ -242,7 +253,8 @@ METHOD_TOL_F64 = 1e-10
 # so a sign census can differ by one section at the last step
 KERNEL_TOL = {'float32': 1e-5, 'float64': 1e-10}
 FLUX_RTOL = {'float32': 1e-4, 'float64': 1e-9}
-LIBRARIES = ('flux_projection', 'stamp_solver', 'compensated_sum')
+LIBRARIES = ('flux_projection', 'stamp_solver', 'compensated_sum',
+             'beta_divergence')
 # K2's operator alone against the dense circulant product, max|dy| over
 # max|x|: the two sum 961 products a pixel in different orders
 OPERATOR_TOL = {'float32': 1e-5, 'float64': 1e-12}
@@ -1534,6 +1546,131 @@ def phase_compensated_sum(torch) -> dict:
                                     plain_ms=plain_ms,
                                     plain_launches=p_host, **work)
     return out[FF_SUM_SHAPES[0]]
+
+
+# phase 45: the beta objective's shapes, (rows, pixels, dtype, stable): the
+# beta cell's batch in float32 with the compensated tree (its case) and in
+# float64 without (the solver's float64 case)
+BETA_DIV_SHAPES = ((MAIN_B, N_PIX, 'float32', True),
+                   (MAIN_B, N_PIX, 'float64', False))
+# phase 45: kernel against plain version, max|d sum| over the row's sum of
+# |term| (float32's objective with the tree: bit for bit)
+BETA_DIV_TOL = {'float32': 1e-5, 'float64': 1e-12}
+
+
+def beta_div_inputs(torch, rows: int, n: int, dtype):
+    """den, gn, log gn and beta of phase 45: gn photon counts over five
+    decades, den = gn e^d with d in [-0.6, 0.6] (|beta d| on both sides of
+    the series switch at 0.25), den == gn on every seventh pixel, beta
+    drawn from [0.9, 1.2] (the cell's start 1.005 in row 0)."""
+    rng = np.random.default_rng(45)
+    gn = rng.lognormal(np.log(300.0), 1.5, (rows, n))
+    den = gn * np.exp(rng.uniform(-0.6, 0.6, (rows, n)))
+    beta = rng.uniform(0.9, 1.2, rows)
+    beta[0] = 1.005
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device='cuda')
+    gn, den = t(gn), t(den)
+    den[:, ::7] = gn[:, ::7]
+    return den, gn, torch.log(gn), t(beta)
+
+
+def phase_beta_objective(torch) -> dict:
+    """Phase 45: the beta objective with its d/dbeta row sums as one launch
+    (``kernels.beta_divergence.beta_div_rows``) against its plain version
+    (``ops.divergence.beta_div_with_dbeta_plain``) on the card at
+    ``BETA_DIV_SHAPES``; the kernel's and the plain version's device times
+    (calls in a CUDA graph), the kernel's time a call through the wrapper
+    (CUDA events), the launches a call of each and the bound (den, gn and
+    log gn read once, beta read and two sums written once). Then one beta
+    ``restore_stamps`` of phase 4's stamps: the kernel's launches against
+    the objective's evaluations (one a line-search trial; a fresh solve's
+    set-up evaluates the objective alone). Prints the kernel's ptxas line.
+    Returns the float32 numbers."""
+    from tpu_sgp_torch import observability
+    from tpu_sgp_torch.kernels import _build
+    from tpu_sgp_torch.kernels import beta_divergence as bk
+    from tpu_sgp_torch.kernels import launches as kernel_launches
+    from tpu_sgp_torch.ops.divergence import beta_div_with_dbeta_plain
+    lib = _build.build('beta_divergence')
+    report = ptxas_summary(lib.with_name(lib.name + '.log').read_text())
+    resident = occupancy('beta_divergence')
+    print('ptxas beta_divergence: ' + '; '.join(
+        f'{k} {v}, {resident.get(k, "?")}' for k, v in report.items()))
+    out = {}
+    for rows, n, name, stable in BETA_DIV_SHAPES:
+        dtype = getattr(torch, name)
+        den, gn, lg, beta = beta_div_inputs(torch, rows, n, dtype)
+        kernel = lambda: bk.beta_div_rows(den, gn, beta, lg, stable)
+        plain = lambda: beta_div_with_dbeta_plain(den, gn, beta, lg,
+                                                  stable=stable)
+        before = kernel_launches['beta_div_rows']
+        fv, dsum = kernel()
+        check(kernel_launches['beta_div_rows'] == before + 1,
+              'one launch a call')
+        pf, pd = plain()
+        one = lambda a: a.reshape(-1, 1)
+        terms = beta_div_with_dbeta_plain(one(den), one(gn),
+                                          beta.repeat_interleave(n), one(lg))
+        f_scale, d_scale = (t.abs().reshape(rows, n).sum(-1) for t in terms)
+        torch.cuda.synchronize()
+        f_err = float(((fv - pf).abs() / f_scale).max())
+        d_err = float(((dsum - pd).abs() / d_scale).max())
+        bits = lambda t: t.view(torch.int32 if name == 'float32'
+                                else torch.int64)
+        same = bool(torch.equal(bits(fv), bits(pf)))
+        if stable and name == 'float32':
+            check(same, f'({rows}, {n}) {name}: objective bit-equal to the '
+                        f'plain version')
+        check(max(f_err, d_err) <= BETA_DIV_TOL[name],
+              f'({rows}, {n}) {name}: kernel agrees with plain')
+        ms = graph_ms(torch, kernel)
+        ms2 = graph_ms(torch, kernel)
+        wrapper_ms = time_ms(torch, kernel, reps=200)
+        plain_ms = graph_ms(torch, plain, reps=3)
+        plain_events_ms = time_ms(torch, plain, reps=20)
+        k_dev, k_host = count_launches(torch, kernel)
+        p_dev, p_host = count_launches(torch, plain)
+        size = 4 if name == 'float32' else 8
+        work = bound(size * rows * (3 * n + 3), 0.0)
+        cols, levels, chunk = bk.beta_div_plan(n)
+        print(f'beta objective ({rows}, {n}) {name} stable={stable}: '
+              f'objective {"bit-equal to" if same else "not bit-equal to"} '
+              f'the plain version, max |d fv| {f_err:.3e} and |d dsum| '
+              f'{d_err:.3e} of the sums of |term| (limit '
+              f'{BETA_DIV_TOL[name]:.0e}); plan one block a row, {cols} '
+              f'columns x 2^{levels} read 2^{chunk} at a time; kernel '
+              f'{ms:.4f} ms on the device (CUDA graph; again {ms2:.4f}), '
+              f'{wrapper_ms:.4f} ms a call back to back through the wrapper '
+              f'(CUDA events), {k_host} launch calls and {k_dev} device '
+              f'kernels in the profiler; plain version {plain_ms:.4f} ms '
+              f'(CUDA graph; {plain_events_ms:.4f} ms by CUDA events), '
+              f'{p_host} launch calls and {p_dev} device kernels; bound '
+              f'{work["bound_ms"]:.5f} ms ({work["bound_by"]})')
+        out[(rows, n, name)] = dict(ms=ms, wrapper_ms=wrapper_ms,
+                                    plain_ms=plain_ms,
+                                    plain_launches=p_host, **work)
+        del den, gn, lg, beta, terms, fv, dsum, pf, pd
+
+    inputs = main_path_inputs(MAIN_B)
+    restore(torch, inputs, 'cuda', path='beta section')      # warm-up
+    before = kernel_launches['beta_div_rows']
+    with observability.tracing() as trace:
+        t0 = time.perf_counter()
+        res = restore(torch, inputs, 'cuda', path='beta section')
+        wall = time.perf_counter() - t0
+    launched = kernel_launches['beta_div_rows'] - before
+    passes = trace.get('beta.objective').count
+    alone = sum(st.count for path, st in trace.by_path().items()
+                if path[-2:] == ('solver.setup', 'beta.objective'))
+    check(launched == passes - alone > 0,
+          'one launch an objective evaluation with d/dbeta')
+    print(f'beta objective in a beta restore_stamps of {MAIN_B} stamps '
+          f'(traced, {wall:.3f} s): {launched} launches of beta_div_rows, '
+          f'{passes} objective evaluations, {alone} of them in a set-up '
+          f'(the objective alone), '
+          f'{trace.get("beta.rows").count / MAIN_B:.2f} rows a stamp, '
+          f'iterations median {float(res.iters.float().median()):g}')
+    return dict(out[BETA_DIV_SHAPES[0][:3]], launches=launched)
 
 
 def frame_inputs():
@@ -4172,7 +4309,8 @@ def main() -> int:
                                   card, ran_worlds())),
                               (42, lambda: phase_k2_shapes(torch, card)),
                               (43, lambda: phase_guided_rows(torch)),
-                              (44, lambda: phase_compensated_sum(torch))):
+                              (44, lambda: phase_compensated_sum(torch)),
+                              (45, lambda: phase_beta_objective(torch))):
             if number >= first:
                 phase()
         print(f'partial run from phase {first}: no result')
@@ -4235,11 +4373,12 @@ def main() -> int:
     phase_determinism(card, beside=lambda: phase_soak(card))
     phase_distributed_demo(card, worlds)
 
-    # 42
+    # 42-45
     shapes = time.perf_counter()
     k2['routes'] += phase_k2_shapes(torch, card)
     guided = phase_guided_rows(torch)['float32']
     ff_sum = phase_compensated_sum(torch)
+    beta_div = phase_beta_objective(torch)
     done = time.perf_counter()
     in_worlds = sum(float(w[0].get('examples/demo_wall', 0.0))
                     + float(w[0].get('examples/halo_wall', 0.0))
@@ -4250,8 +4389,8 @@ def main() -> int:
           f'(31-33, with the examples of 37 and 41) '
           f'{examples - meshes:.1f} s, the examples (34-41) '
           f'{shapes - examples:.1f} s and {in_worlds:.1f} s in the worlds, '
-          f'K2\'s shapes, the guided kernel and the compensated sum '
-          f'(42-44) '
+          f'K2\'s shapes, the guided kernel, the compensated sum and the '
+          f'beta objective (42-45) '
           f'{done - shapes:.1f} s, all '
           f'{done - started:.1f} s')
 
@@ -4277,7 +4416,11 @@ def main() -> int:
         'name': 'compensated_sum_frame_row', 'route': 'cuda',
         'source': 'tpu_sgp_torch/csrc/compensated_sum.cu',
         'replaces': 'tpu_sgp_torch/ops/reduce.py:tree_sum_ff', **ff_sum,
-        **frame_ff_sum}]}))
+        **frame_ff_sum}, {
+        'name': 'beta_divergence', 'route': 'cuda',
+        'source': 'tpu_sgp_torch/csrc/beta_divergence.cu',
+        'replaces': 'tpu_sgp_torch/ops/divergence.py:'
+                    'beta_div_with_dbeta_plain', **beta_div}]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-// Warp-level reductions shared by the port's kernels: a butterfly of
-// shuffles, after which every lane of the warp holds the result.
+// Reductions shared by the port's kernels: a warp's butterfly of shuffles,
+// after which every lane of the warp holds the result, and a block's sum.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +31,22 @@ __device__ __forceinline__ T warp_max(T v) {
     const T o = __shfl_xor_sync(0xffffffffu, v, off);
     v = o > v ? o : v;
   }
+  return v;
+}
+
+// The sum of v over a block of a multiple of 32 threads: each warp's
+// butterfly, then warp 0's over the warps' sums, which pass through part
+// (32 values of shared memory, free on entry and again on return). Every
+// lane of warp 0 ends with the result.
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* part) {
+  v = warp_sum(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  v = T(0);
+  if (warp == 0) v = warp_sum(lane < (blockDim.x >> 5) ? part[lane] : T(0));
+  __syncthreads();
   return v;
 }
 

@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from ..kernels import beta_divergence
 from .reduce import gsum, gsum_ff
 
 
@@ -80,7 +81,23 @@ def _e2_from_expm1(s: torch.Tensor, em: torch.Tensor) -> torch.Tensor:
 def beta_div_with_dbeta(den: torch.Tensor, gn: torch.Tensor, beta,
                         log_gn: torch.Tensor, axes=(), stable: bool = False):
     """(beta_div per row, per-row sum of d betaDiv / d beta) in one pass
-    (``divergence.py:113-161``); assumes gn > 0, as the solver floors it."""
+    (``divergence.py:113-161``); assumes gn > 0, as the solver floors it.
+    On a CUDA tensor one launch of
+    ``kernels.beta_divergence.beta_div_rows``, on a CPU tensor
+    ``beta_div_with_dbeta_plain``. Under mesh axes the objective is
+    all-reduced and the d/dbeta sums stay local, as in the plain
+    version."""
+    if not den.is_cuda:
+        return beta_div_with_dbeta_plain(den, gn, beta, log_gn, axes, stable)
+    fv, dsum = beta_divergence.beta_div_rows(den, gn, beta, log_gn, stable)
+    return (axes.all_reduce(fv, 'sum') if axes else fv), dsum
+
+
+def beta_div_with_dbeta_plain(den: torch.Tensor, gn: torch.Tensor, beta,
+                              log_gn: torch.Tensor, axes=(),
+                              stable: bool = False):
+    """``beta_div_with_dbeta`` in plain PyTorch, on any device: the CUDA
+    kernel's plain version."""
     b = _col(beta, den)
     e = b - 1.0
     d = torch.log(den / gn)
