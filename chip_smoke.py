@@ -41,8 +41,9 @@ Phases, one line of output each (or a few):
      (float32 on the FP32 pipes, float64); its time at phase 7's count of
      operator applications, as a share of the kernel's time, beside
      cuBLAS's float32 GEMM of the same count;
-  9. each plain-PyTorch projection method ('bisect', 'section', 'sort',
-     'secant', warm 'bisect') on the card against the CPU at (12288, 961),
+  9. each projection method ('bisect', on the card the guided kernel;
+     the plain-PyTorch 'section', 'sort', 'secant' and warm 'bisect') on
+     the card against the CPU at (12288, 961),
      float32 and float64, with and without saturation; each one's time and
      kernel launches a call at (12288, 961) float32;
  10. the KL default path at full size: phase 4's stamps through
@@ -179,8 +180,9 @@ Phases, one line of output each (or a few):
      plan's block of each design against the card's for every shape up to
      4096 pixels;
  43. the cold guided secant ('bisect') on long rows as one grid kernel:
-     at (1, 168100), float32 and float64, with and without saturation,
-     the route the plan takes by itself, its x against the plain ladder
+     at (1, 168100) (pixels in registers) and (1, 2048 * 2048) (streamed
+     by every block the card holds), float32 and float64, with and
+     without saturation, the route and plan, its x against the plain ladder
      (``_guided_root``) on the card (1e-5 / 1e-12 of max|x|) and both flux
      errors; then its time (CUDA events) against the plain ladder's, the
      launches a call of each (the kernel's counter, ``torch.profiler``'s
@@ -188,8 +190,9 @@ Phases, one line of output each (or a few):
      beside K1's grid kernel's. The launches of the guided kernel in the
      kernels line are phase 15's, in the facade's cold-'bisect' solve.
  44. the compensated row sum (``gsum_ff``) as one kernel: at (1, 168100)
-     float32 and float64 (a frame's row) and (12288, 961) float32 (a
-     stamp batch), the kernel against the plain tree on the card bit for
+     float32 and float64 (a frame's row), (12288, 961) float32 (a stamp
+     batch) and (1, 2048 * 2048) float32 and float64 (a whole exposure's
+     row), the kernel against the plain tree on the card bit for
      bit; the kernel's device time (calls replayed in a CUDA graph, so
      neither the host's work nor the profiler enters) and its time a call
      through the wrapper (CUDA events) against its bound (bytes) and the
@@ -199,16 +202,19 @@ Phases, one line of output each (or a few):
      the compensated sum in the kernels line are phase 15's, in the
      float32 facade solve.
  45. the beta objective with its d/dbeta row sums as one kernel
-     (``kernels.beta_divergence.beta_div_rows``) at the beta cell's
-     (12288, 961), float32 with the compensated tree (the cell's case) and
-     float64 without: against its plain version on the card (float32's
+     (``kernels.beta_divergence.beta_div_rows``) at the beta stamp cell's
+     (12288, 961) and the beta frame cell's (1, 2048 * 2048), float32 with
+     the compensated tree (the cells' case) and float64 without: against
+     its plain version on the card (float32's
      objective bit for bit, the rest within 1e-5 / 1e-12 of the sums of
      |term|); its device time and the plain version's (calls in a CUDA
      graph), its time a call through the wrapper (CUDA events), the
      launches a call of each, its bound (bytes) and its ptxas line; then
      the kernel's launches in one beta ``restore_stamps`` of phase 4's
      12288 stamps on the 'beta section' path, against its objective
-     evaluations.
+     evaluations, and in a traced beta ``restore_stamps`` of a 256x256
+     frame with the frame cell's settings, ``beta_div.pixels`` against
+     its launches x N.
 
 Then a JSON line of the kernels (K2's entry lists the routes it launched,
 each with its launches, time and bound), the ``nvidia-smi`` line, and last
@@ -245,7 +251,7 @@ PATHS = {'pallas': (BENCH_CFG, COMPACTION),
          'kl bisect': (KL_CFG, COMPACTION),
          'beta section': (BETA_CFG, dict(phase1_iters=28, tail_bucket=2048,
                                          beta0=1.005, lr0=1e-3))}
-# the plain-PyTorch projections of phase 9 ('warm' is 'bisect' warm-started)
+# the projections of phase 9 ('warm' is 'bisect' warm-started)
 METHODS = ('bisect', 'section', 'sort', 'secant', 'warm')
 # phase 9: card against CPU, float64 max|dx|/max|x|
 METHOD_TOL_F64 = 1e-10
@@ -310,6 +316,8 @@ K2_ROUTES = (('float32', (240, 17)), ('float32', (4, 1024)),
 K2_ROUTE_B = 64
 # phase 13: the long rows, (rows, pixels): one 410x410 frame, four 256x256
 LONG_ROWS = ((1, 410 * 410), (4, 256 * 256))
+# a whole 2048x2048 exposure as one row, the beta frame cell's
+FRAME_ROW = 2048 * 2048
 # phases 15-16: the JAX bench's whole-frame workload (bench.py:387-413): a
 # 410x410 star field, a 31x31 PSF, background 150, no flux given, no
 # saturation, the warm-started bisection
@@ -1177,8 +1185,9 @@ def graph_ms(torch, fn, reps: int = 50) -> float:
 
 
 def phase_methods(torch) -> None:
-    """Phase 9: each plain-PyTorch projection method on the card against
-    the same call on the CPU, at the main path's (12288, 961), float32 and
+    """Phase 9: each projection method on the card (cold 'bisect' there
+    the guided kernel, the rest plain PyTorch) against the same call on
+    the CPU, at the main path's (12288, 961), float32 and
     float64, with and without saturation (the cap leaves room for the
     flux). float64: x within ``METHOD_TOL_F64`` of max|x|; float32: the
     card's flux error <= 1e-4. The warm start takes the cold guided
@@ -1388,13 +1397,15 @@ GUIDED_TOL = {'float32': 1e-5, 'float64': 1e-12}
 
 def phase_guided_rows(torch) -> dict:
     """Phase 43: the cold guided secant of 'bisect' as one grid kernel on
-    the whole frame's row, (1, 168100): the plan must route it to the
-    kernel by itself; x against the plain ladder on the card to
-    ``GUIDED_TOL`` of max|x|, both flux errors. Then, float32 and float64
-    without saturation, the kernel's time against the plain ladder's, the
-    launches a call of each (the kernel's counter; the profiler's launch
-    calls and device kernels), and the bound. Prints the guided kernel's
-    ptxas lines beside K1's grid kernel's."""
+    a whole frame's row, (1, 168100) with its pixels in registers and
+    (1, 2048 * 2048) streamed by every block the card holds: the route
+    must take the kernel by itself; x against the plain ladder on the card
+    to ``GUIDED_TOL`` of max|x|, both flux errors. Then, float32 and
+    float64 without saturation, the kernel's time against the plain
+    ladder's, the launches a call of each (the kernel's counter; the
+    profiler's launch calls and device kernels), and the bound. Prints the
+    guided kernel's ptxas lines beside K1's grid kernel's. Returns the
+    (1, 168100) numbers."""
     from tpu_sgp_torch.kernels import _build
     from tpu_sgp_torch.kernels import launches as kernel_launches
     from tpu_sgp_torch.kernels.flux_projection import (guided_plan,
@@ -1407,76 +1418,88 @@ def phase_guided_rows(torch) -> dict:
         f'{k} {v}, {resident.get(k, "?")}' for k, v in report.items()
         if k.startswith(('project_rows_guided_grid_kernel',
                          'project_rows_grid_kernel'))))
-    rows, n = LONG_ROWS[0]
     out, seed = {}, 430
-    for name in ('float32', 'float64'):
-        dtype = getattr(torch, name)
-        blocks, _, capacity = guided_plan(rows, n, dtype, 0)
-        check(guided_route(rows, n, dtype, 'cuda') == 'kernel',
-              f'({rows}, {n}) {name}: the plan routes the row to the kernel')
-        for has_sat in (True, False):
-            seed += 1
-            b, c, dia, cap = projection_case(torch, rows, n, dtype, has_sat,
-                                             'cuda', seed)
+    for rows, n in (LONG_ROWS[0], (1, FRAME_ROW)):
+        for name in ('float32', 'float64'):
+            dtype = getattr(torch, name)
+            blocks, _, n_launches, _, _, streamed = guided_plan(rows, n,
+                                                                dtype, 0)
+            check(guided_route(dtype, 'cuda') == 'kernel'
+                  and n_launches == 1 and streamed == (n == FRAME_ROW),
+                  f'({rows}, {n}) {name}: the kernel takes the row in one '
+                  f'launch')
+            layout = (f'{blocks} blocks, '
+                      f'{"streamed" if streamed else "in registers"}')
+            for has_sat in (True, False):
+                seed += 1
+                b, c, dia, cap = projection_case(torch, rows, n, dtype,
+                                                 has_sat, 'cuda', seed)
+                scaling = torch.ones_like(b)
+                sat = cap if has_sat else None
+                before = kernel_launches['project_guided_rows']
+                x = tproj.project('bisect', b, c, dia, scaling,
+                                  sat_level=sat, has_sat=has_sat)
+                check(kernel_launches['project_guided_rows'] == before + 1,
+                      'the call took the guided kernel')
+                xp = tproj._guided_root(b, c, dia, scaling, sat, has_sat,
+                                        None)[0]
+                torch.cuda.synchronize()
+                rel = float((x - xp).abs().max() / xp.abs().max())
+                flux = float(((x.double().sum(-1) - b) / b).abs().max())
+                flux_p = float(((xp.double().sum(-1) - b) / b).abs().max())
+                print(f'guided long row ({rows}, {n}) {name} has_sat='
+                      f'{has_sat}: kernel ({layout}) vs plain ladder '
+                      f'max|dx|/max|x|={rel:.3e} (limit '
+                      f'{GUIDED_TOL[name]:.0e}) flux rel err kernel '
+                      f'{flux:.3e} plain {flux_p:.3e}')
+                check(bool(torch.isfinite(x).all()), 'finite kernel x')
+                check(rel <= GUIDED_TOL[name],
+                      'guided kernel agrees with plain')
+                check(flux <= FLUX_RTOL[name] and flux <= flux_p + 1e-6,
+                      'guided kernel conserves flux')
+            b, c, dia, _ = projection_case(torch, rows, n, dtype, False,
+                                           'cuda', 439)
             scaling = torch.ones_like(b)
-            sat = cap if has_sat else None
+            kern = lambda: tproj._guided_root_kernel(b, c, dia, scaling,
+                                                     None, False, None)
+            plain = lambda: tproj._guided_root(b, c, dia, scaling, None,
+                                               False, None)
+            ms = time_ms(torch, kern, reps=50)
+            plain_ms = time_ms(torch, plain, reps=10)
+            ms2 = time_ms(torch, kern, reps=50)
             before = kernel_launches['project_guided_rows']
-            x = tproj.project('bisect', b, c, dia, scaling, sat_level=sat,
-                              has_sat=has_sat)
-            check(kernel_launches['project_guided_rows'] == before + 1,
-                  'the call took the guided kernel')
-            xp = tproj._guided_root(b, c, dia, scaling, sat, has_sat,
-                                    None)[0]
-            torch.cuda.synchronize()
-            rel = float((x - xp).abs().max() / xp.abs().max())
-            flux = float(((x.double().sum(-1) - b) / b).abs().max())
-            flux_p = float(((xp.double().sum(-1) - b) / b).abs().max())
-            print(f'guided long row ({rows}, {n}) {name} has_sat={has_sat}: '
-                  f'kernel ({blocks} blocks of {capacity}) vs plain ladder '
-                  f'max|dx|/max|x|={rel:.3e} (limit {GUIDED_TOL[name]:.0e}) '
-                  f'flux rel err kernel {flux:.3e} plain {flux_p:.3e}')
-            check(bool(torch.isfinite(x).all()), 'finite kernel x')
-            check(rel <= GUIDED_TOL[name], 'guided kernel agrees with plain')
-            check(flux <= FLUX_RTOL[name] and flux <= flux_p + 1e-6,
-                  'guided kernel conserves flux')
-        b, c, dia, _ = projection_case(torch, rows, n, dtype, False, 'cuda',
-                                       439)
-        scaling = torch.ones_like(b)
-        kern = lambda: tproj._guided_root_kernel(b, c, dia, scaling, None,
-                                                 False, None)
-        plain = lambda: tproj._guided_root(b, c, dia, scaling, None, False,
-                                           None)
-        ms = time_ms(torch, kern, reps=50)
-        plain_ms = time_ms(torch, plain, reps=10)
-        ms2 = time_ms(torch, kern, reps=50)
-        before = kernel_launches['project_guided_rows']
-        kern()
-        counted = kernel_launches['project_guided_rows'] - before
-        k_dev, k_host = count_launches(torch, kern)
-        p_dev, p_host = count_launches(torch, plain)
-        points = 4 + 3 * (tproj.newton_passes(dtype) + 1)
-        size = 4 if name == 'float32' else 8
-        # c and dia read once and x written (the kernel reads dia again
-        # for x, which is not counted); per pixel 5 operations a residual
-        # point, 8 for the bracket and the anchors, 4 for x
-        work = bound(3 * rows * n * size, rows * n * (5 * points + 12),
-                     ops_rate=F32_FLOP_S if size == 4 else F64_FLOP_S)
-        print(f'guided long row time ({rows}, {n}) {name}: kernel {ms:.4f} '
-              f'ms (again {ms2:.4f}), {counted} launch a call (counter), '
-              f'{k_host} launch calls and {k_dev} device kernels in the '
-              f'profiler; plain ladder {plain_ms:.4f} ms, {p_host} launch '
-              f'calls and {p_dev} device kernels in the profiler; bound '
-              f'{work["bound_ms"]:.5f} ms ({work["bound_by"]})')
-        check(counted == 1, 'one launch a call')
-        out[name] = dict(ms=ms, plain_ms=plain_ms, plain_launches=p_host,
-                         **work)
+            kern()
+            counted = kernel_launches['project_guided_rows'] - before
+            k_dev, k_host = count_launches(torch, kern)
+            p_dev, p_host = count_launches(torch, plain)
+            points = 4 + 3 * (tproj.newton_passes(dtype) + 1)
+            size = 4 if name == 'float32' else 8
+            # c and dia read once and x written (the kernel reads dia again
+            # for x, and a streamed block c and dia in every phase, which is
+            # not counted); per pixel 5 operations a residual point, 8 for
+            # the bracket and the anchors, 4 for x
+            work = bound(3 * rows * n * size, rows * n * (5 * points + 12),
+                         ops_rate=F32_FLOP_S if size == 4 else F64_FLOP_S)
+            print(f'guided long row time ({rows}, {n}) {name}: kernel '
+                  f'{ms:.4f} ms (again {ms2:.4f}; {layout}), {counted} '
+                  f'launch a call (counter), {k_host} launch calls and '
+                  f'{k_dev} device kernels in the profiler; plain ladder '
+                  f'{plain_ms:.4f} ms, {p_host} launch calls and {p_dev} '
+                  f'device kernels in the profiler; bound '
+                  f'{work["bound_ms"]:.5f} ms ({work["bound_by"]})')
+            check(counted == 1, 'one launch a call')
+            if n == LONG_ROWS[0][1]:
+                out[name] = dict(ms=ms, plain_ms=plain_ms,
+                                 plain_launches=p_host, **work)
     return out
 
 
 # phase 44: the compensated row sum's shapes, (rows, pixels, dtype): a
-# frame's row in both types and a stamp batch
+# frame's row in both types, a stamp batch, and a 2048x2048 frame's row in
+# both types
 FF_SUM_SHAPES = ((1, 410 * 410, 'float32'), (1, 410 * 410, 'float64'),
-                 (MAIN_B, N_PIX, 'float32'))
+                 (MAIN_B, N_PIX, 'float32'), (1, FRAME_ROW, 'float32'),
+                 (1, FRAME_ROW, 'float64'))
 
 
 def phase_compensated_sum(torch) -> dict:
@@ -1520,9 +1543,10 @@ def phase_compensated_sum(torch) -> dict:
                                 else torch.int64)
         check(torch.equal(bits(got), bits(want)),
               f'({rows}, {n}) {name}: kernel bit-equal to the tree')
-        ms = graph_ms(torch, lambda: cs.ff_sum_rows(x))
-        ms2 = graph_ms(torch, lambda: cs.ff_sum_rows(x))
-        wrapper_ms = time_ms(torch, lambda: cs.ff_sum_rows(x), reps=200)
+        reps = 50 if n < FRAME_ROW else 10
+        ms = graph_ms(torch, lambda: cs.ff_sum_rows(x), reps=reps)
+        ms2 = graph_ms(torch, lambda: cs.ff_sum_rows(x), reps=reps)
+        wrapper_ms = time_ms(torch, lambda: cs.ff_sum_rows(x), reps=4 * reps)
         plain_ms = time_ms(torch, lambda: tree_sum_ff(x), reps=20)
         k_dev, k_host = count_launches(torch, lambda: cs.ff_sum_rows(x))
         p_dev, p_host = count_launches(torch, lambda: tree_sum_ff(x))
@@ -1549,10 +1573,13 @@ def phase_compensated_sum(torch) -> dict:
 
 
 # phase 45: the beta objective's shapes, (rows, pixels, dtype, stable): the
-# beta cell's batch in float32 with the compensated tree (its case) and in
-# float64 without (the solver's float64 case)
+# beta stamp cell's batch and the beta frame cell's row, each in float32
+# with the compensated tree (the cells' case) and in float64 without (the
+# solver's float64 case)
 BETA_DIV_SHAPES = ((MAIN_B, N_PIX, 'float32', True),
-                   (MAIN_B, N_PIX, 'float64', False))
+                   (MAIN_B, N_PIX, 'float64', False),
+                   (1, FRAME_ROW, 'float32', True),
+                   (1, FRAME_ROW, 'float64', False))
 # phase 45: kernel against plain version, max|d sum| over the row's sum of
 # |term| (float32's objective with the tree: bit for bit)
 BETA_DIV_TOL = {'float32': 1e-5, 'float64': 1e-12}
@@ -1586,11 +1613,13 @@ def phase_beta_objective(torch) -> dict:
     the objective's evaluations (one a line-search trial; a fresh solve's
     set-up evaluates the objective alone). Prints the kernel's ptxas line.
     Returns the float32 numbers."""
-    from tpu_sgp_torch import observability
+    from tpu_sgp_torch import SGPConfig, observability
     from tpu_sgp_torch.kernels import _build
     from tpu_sgp_torch.kernels import beta_divergence as bk
     from tpu_sgp_torch.kernels import launches as kernel_launches
     from tpu_sgp_torch.ops.divergence import beta_div_with_dbeta_plain
+    from tpu_sgp_torch.parallel.batch import restore_stamps
+    from tpu_sgp_torch.simulate import synthetic_star_field
     lib = _build.build('beta_divergence')
     report = ptxas_summary(lib.with_name(lib.name + '.log').read_text())
     resident = occupancy('beta_divergence')
@@ -1623,9 +1652,10 @@ def phase_beta_objective(torch) -> dict:
                         f'plain version')
         check(max(f_err, d_err) <= BETA_DIV_TOL[name],
               f'({rows}, {n}) {name}: kernel agrees with plain')
-        ms = graph_ms(torch, kernel)
-        ms2 = graph_ms(torch, kernel)
-        wrapper_ms = time_ms(torch, kernel, reps=200)
+        reps = 50 if n < FRAME_ROW else 5
+        ms = graph_ms(torch, kernel, reps=reps)
+        ms2 = graph_ms(torch, kernel, reps=reps)
+        wrapper_ms = time_ms(torch, kernel, reps=4 * reps)
         plain_ms = graph_ms(torch, plain, reps=3)
         plain_events_ms = time_ms(torch, plain, reps=20)
         k_dev, k_host = count_launches(torch, kernel)
@@ -1670,6 +1700,29 @@ def phase_beta_objective(torch) -> dict:
           f'(the objective alone), '
           f'{trace.get("beta.rows").count / MAIN_B:.2f} rows a stamp, '
           f'iterations median {float(res.iters.float().median()):g}')
+
+    # the frame cell's path at 256x256: beta_div.pixels is launches x N
+    img, psf, _ = synthetic_star_field(256, 256, n_stars=40, psf_size=31,
+                                       fwhm=3.0, seed=46)
+    cfg = SGPConfig(**dict(FRAME_BASE, max_iter=500, stop_criterion=3,
+                           tol_convergence=1e-4, divergence='beta',
+                           adapt_beta=True, schedule_lr=True,
+                           lr_exp_param=0.1, projection_method='bisect',
+                           operator='linear', stable_sums=True,
+                           warm_projection=False))
+    before = kernel_launches['beta_div_rows']
+    with observability.tracing() as trace:
+        res = restore_stamps(img[None], psf, np.array([FRAME_BKG]), cfg,
+                             beta0=1.005, lr0=1e-3, device='cuda')
+    frame_launched = kernel_launches['beta_div_rows'] - before
+    pixels = trace.get('beta_div.pixels').count
+    check(trace.get('beta_div.launches').count == frame_launched > 0
+          and pixels == frame_launched * 256 * 256,
+          'beta_div.pixels is beta_div.launches x N')
+    print(f'beta frame 256x256 through restore_stamps (traced): '
+          f'{frame_launched} launches of beta_div_rows, beta_div.pixels '
+          f'{pixels} = launches x {256 * 256}, {int(res.iters[0])} '
+          f'iterations, beta {float(res.beta[0]):.6f}')
     return dict(out[BETA_DIV_SHAPES[0][:3]], launches=launched)
 
 
@@ -1887,7 +1940,7 @@ def phase_frame(torch, card: str) -> tuple:
                   f'the kernel ran once a projection, each on the grid path '
                   f'(launches, grid launches = {counts})')
         else:
-            check(counts == (0, 0), "'bisect' launches no kernel")
+            check(counts == (0, 0), "'bisect' launches no K1")
         print(f'frame solve 410x410 float32 {method} (warm={method == "bisect"}'
               f'): {wall_t * 1e3 / it_t:.3f} ms an iteration at 200 fixed '
               f'iterations (wall {wall_t:.4f} s); stop 3 at 1e-5: iters='
@@ -2128,7 +2181,7 @@ def phase_session(torch, card: str) -> dict:
                      f'{launches[4 * SERVE_B]} a coalesced call of '
                      f'{4 * SERVE_B}')
         else:
-            check(launches[SERVE_B] == 0, "'bisect' launches no kernel")
+            check(launches[SERVE_B] == 0, "'bisect' launches no K1")
         print(f'session p50 B={SERVE_B} float32 {method}: p50='
               f'{np.median(walls):.3f} ms min={min(walls):.3f} max='
               f'{max(walls):.3f} over 25 calls, iters median='
@@ -3742,7 +3795,7 @@ def phase_mesh(torch, card: str, phase20=None) -> tuple:
                       'every rank launched K1 on its shard')
             else:
                 check(bool((launches == 0).all()),
-                      "'bisect' launches no kernel")
+                      "'bisect' launches no K1")
 
     # 31's server: every request on the first rank, each batch shipped
     from tpu_sgp_torch import restore_stamps

@@ -466,29 +466,33 @@ def test_many_long_rows_keep_one_block_a_row_and_a_grid_too_large_raises():
 
 # ---- 'bisect' on long rows: the guided grid kernel and its route ----------
 
-@pytest.mark.parametrize('rows,n,device,sharded,plan,want', [
-    (1, 168100, 'cpu', False, None, 'plain'),           # CPU tensors
-    (1, 168100, 'cuda', True, (165, 1056), 'plain'),    # under mesh axes
-    (12288, 961, 'cuda', False, (12288, 1056), 'plain'),  # stamps
-    (256, 961, 'cuda', False, (256, 1056), 'plain'),    # a served request
-    (1, 2048, 'cuda', False, (2, 1056), 'plain'),       # K1's block rows
-    (25, 168100, 'cuda', False, (4125, 1056), 'plain'),  # too many blocks
-    (7, 168100, 'cuda', False, (1155, 1155), 'kernel'),  # all fit
-    (1, 168100, 'cuda', False, (165, 1056), 'kernel'),  # one whole frame
-    (1, 2049, 'cuda', False, (3, 1056), 'kernel'),
+@pytest.mark.parametrize('rows,n,device,sharded,want', [
+    (1, 168100, 'cpu', False, 'plain'),          # CPU tensors
+    (1, 168100, 'cuda', True, 'plain'),          # under mesh axes
+    (12288, 961, 'cuda', False, 'kernel'),       # stamps
+    (256, 961, 'cuda', False, 'kernel'),         # a served request
+    (1, 2048, 'cuda', False, 'kernel'),          # K1's block rows
+    (25, 168100, 'cuda', False, 'kernel'),       # more than fit at once
+    (7, 168100, 'cuda', False, 'kernel'),        # all fit
+    (1, 168100, 'cuda', False, 'kernel'),        # one 410x410 frame
+    (1, 2049, 'cuda', False, 'kernel'),
+    (1, 4194304, 'cuda', False, 'kernel'),       # one 2048x2048 frame
 ])
 def test_guided_route_takes_the_kernel_only_for_few_long_rows_on_a_card(
-        rows, n, device, sharded, plan, want):
-    """The route of a cold 'bisect' projection from the shape alone: the
-    grid kernel for rows above 2048 pixels on a card whose blocks all fit
-    at once; the plain ladder for CPU tensors, mesh axes, stamps and more
-    long rows than the card holds. With a plan (blocks, capacity) given,
-    the rule asks no card."""
+        rows, n, device, sharded, want):
+    """The route of a cold 'bisect' projection: the grid kernel for every
+    CUDA tensor in float32 or float64, whatever its shape; the plain
+    ladder for CPU tensors and under mesh axes. A CUDA tensor in another
+    dtype raises rather than take the plain ladder. The rule asks no
+    card."""
     from tpu_sgp_torch.kernels.flux_projection import guided_route
-    assert guided_route(rows, n, torch.float32, device, sharded=sharded,
-                        plan=plan) == want
-    assert guided_route(rows, n, torch.float16, device, sharded=sharded,
-                        plan=plan) == 'plain'
+    assert guided_route(torch.float32, device, sharded=sharded) == want
+    if want == 'plain':
+        assert guided_route(torch.float16, device, sharded=sharded) \
+            == 'plain'
+    else:
+        with pytest.raises(TypeError, match='float32 or float64'):
+            guided_route(torch.float16, device, sharded=sharded)
 
 
 # sha256 (first 16 hex digits) of project('bisect', ...)'s x on seeded rows,
@@ -603,22 +607,30 @@ def _check_routes(got, want, b, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('has_sat', [False, True])
-@pytest.mark.parametrize('rows,n', [(1, 168100), (1, 4097), (2, 168100)])
+@pytest.mark.parametrize('rows,n', [(1, 168100), (1, 4097), (2, 168100),
+                                    (12288, 961), (600, 1500),
+                                    (1, 4194304)])
 def test_guided_kernel_matches_plain_on_card(dtype, has_sat, rows, n):
-    """The guided grid kernel against the plain ladder on the same card, in
-    one launch; 'auto' takes the kernel for these shapes."""
+    """The guided grid kernel against the plain ladder on the same card:
+    stamps one block a row in one plain launch, a 410x410 frame in
+    registers in one launch, rows of two blocks in groups of as many as the
+    card holds at once, and a 2048x2048 frame streamed by every block the
+    card holds, in one launch."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')
-    from tpu_sgp_torch.kernels.flux_projection import (guided_plan,
-                                                       guided_route)
-    assert guided_route(rows, n, dtype, 'cuda') == 'kernel'
-    blocks, scratch, capacity = guided_plan(rows, n, dtype, 0)
-    # 1024 pixels a block
-    assert blocks == rows * -(-n // 1024) <= capacity and scratch > 0
+    from tpu_sgp_torch.kernels.flux_projection import guided_plan
+    blocks, scratch, n_launches, bpr, group, streamed = guided_plan(
+        rows, n, dtype, 0)
+    assert blocks == group * bpr
+    assert streamed == (n == 4194304)
+    # 1024 pixels a block, unless streamed
+    assert streamed or bpr == -(-n // 1024)
+    assert n_launches == -(-rows // (blocks // bpr)) and scratch > 0
+    assert (n_launches > 1) == (rows * bpr > blocks) == (n == 1500)
     b, c, dia, scaling, sat = _long_rows(rows, n)
     got, want, launches = _both_routes(b, c, dia, scaling, sat, dtype,
                                        has_sat)
-    assert launches == 1
+    assert launches == n_launches
     _check_routes(got, want, b, dtype)
 
 
@@ -762,21 +774,22 @@ def test_guided_kernel_nearly_all_clipped_row_on_card(dtype, monkeypatch):
 
 @pytest.mark.cuda
 def test_guided_route_on_card_and_a_grid_too_large_raises():
-    """On the card: stamps and many long rows keep the plain ladder;
-    forcing the kernel on a grid larger than the card holds raises."""
+    """On the card: 64 whole 410x410 frames, more blocks than the card
+    holds at once, take the kernel in groups of rows, a launch a group,
+    and agree with the plain ladder; a grid too large is never launched."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')
-    from tpu_sgp_torch.kernels.flux_projection import guided_route
-    assert guided_route(12288, 961, torch.float32, 'cuda') == 'plain'
-    assert guided_route(1, 168100, torch.float64, 'cuda') == 'kernel'
+    from tpu_sgp_torch.kernels.flux_projection import guided_plan
     rows, n = 64, 168100
-    assert guided_route(rows, n, torch.float32, 'cuda') == 'plain'
-    b, c, dia, scaling, _ = _long_rows(rows, n)
-    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device='cuda')
-    with pytest.raises(RuntimeError, match='guided projection kernel'):
-        tproj._guided_root_kernel(t(b), t(c), t(dia), t(scaling), None,
-                                  False, None)
-    torch.cuda.synchronize()
+    blocks, _, n_launches, bpr, _, streamed = guided_plan(rows, n,
+                                                          torch.float32, 0)
+    assert not streamed and bpr == 165 and rows * bpr > blocks
+    assert n_launches == -(-rows // (blocks // bpr)) > 1
+    b, c, dia, scaling, sat = _long_rows(rows, n)
+    got, want, launches = _both_routes(b, c, dia, scaling, sat,
+                                       torch.float32, False)
+    assert launches == n_launches
+    _check_routes(got, want, b, torch.float32)
 
 
 @pytest.mark.cuda

@@ -52,7 +52,7 @@
 // The launcher picks the path from N and the number of rows; none is a
 // fallback for another.
 // Beside K1, the same grid design runs the 'bisect' method's cold guided
-// secant on long rows (project_rows_guided_grid_kernel, below).
+// secant on rows of any length (project_rows_guided_grid_kernel, below).
 // The TPU version's (rows, 128) padding and sentinel pixels become a bounds
 // check on the ragged edge.
 
@@ -471,9 +471,13 @@ project_rows_grid_kernel(const T* __restrict__ b, const T* __restrict__ c,
 // project_df_bisect's cold ladder, _guided_root in
 // tpu_sgp_torch/projection/flux_projection.py (tpu_sgp/projection/
 // flux_projection.py:538-623), on rows split over the grid as the grid path
-// above splits them. Where the plain version issues about 25 small PyTorch
-// operations a step, about 600 launches a call for one row, this is one
-// launch. Its phases are the plain version's, each ending in one grid-wide
+// above splits them: a stamp is one block, a 410x410 frame 165 blocks that
+// hold its pixels in registers, and a row longer than the card's resident
+// blocks can hold (a 2048x2048 frame) is shared among all of them, each
+// block streaming its part from memory in every phase (guided_choose,
+// below). Where the plain version issues about 25 small PyTorch operations
+// a step, about 600 launches a call, this is one launch (one a group of
+// rows, where more rows come than the card holds at once). Its phases are the plain version's, each ending in one grid-wide
 // reduction of its partials and one grid.sync():
 // - phase 0: the bracket lo = min(-c), hi = max(max(b * dia - c), lo + 1),
 //   and the anchors' max(-c), sum(1/dia), sum(max(c, 0)/dia);
@@ -512,7 +516,10 @@ __device__ __forceinline__ T identity(int op) {
 // The K totals of the row's blocks: each thread's v[k] is reduced over its
 // block, written to ``buf`` (laid out [slot][part]), and after the grid
 // barrier warp k reduces slot k over the row's parts in the same order in
-// every block. Returns with the totals in tot[0..K).
+// every block. A row of one block (bpr == 1, a launch that need not be
+// cooperative) takes its block's totals as they are, with no grid barrier:
+// the same values, since the row's other parts would add only identities.
+// Returns with the totals in tot[0..K).
 template <typename T, int K, int OPS>
 __device__ __forceinline__ void row_reduce(T (&v)[K], T (*red)[kWarps],
                                            T* tot, T* buf, int part, int bpr,
@@ -531,7 +538,14 @@ __device__ __forceinline__ void row_reduce(T (&v)[K], T (*red)[kWarps],
     T r = red[tid][0];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) r = combine(r, red[tid][w], op);
-    buf[tid * bpr + part] = r;
+    if (bpr == 1)
+      tot[tid] = r;
+    else
+      buf[tid * bpr + part] = r;
+  }
+  if (bpr == 1) {
+    __syncthreads();
+    return;
   }
   grid.sync();
   if (warp < K) {
@@ -609,12 +623,16 @@ __device__ __forceinline__ void candidates(const Ladder<T>& s, bool with_mid,
   for (int k = 0; k < 3; ++k) p[k] = dev_min(dev_max(srt[k], lo_c), hi_c);
 }
 
-// Block blockIdx.x serves pixels [part * PER * kThreads, ...) of row
-// blockIdx.x / bpr, i = base + tid + j * kThreads for j < PER, holding c,
-// 1/dia and cap * dia in registers. Phase p writes plane p & 1 of
-// ``scratch``, laid out [plane][row][slot][part]; as in the grid path, a
-// block writes phase p + 2 only after the barrier of phase p + 1. The first
-// block of a row writes the row's root to lam.
+// Block blockIdx.x serves part blockIdx.x % bpr of row blockIdx.x / bpr.
+// With PER > 0 that part is pixels i = base + tid + j * kThreads, j < PER,
+// base = part * PER * kThreads, whose c, 1/dia and cap * dia stay in
+// registers for every phase. With PER == 0 (streamed: a row longer than
+// the blocks the card holds at once can cover, a whole 2048x2048 frame)
+// the part is every pixel i = (part + j * bpr) * kThreads + tid, and each
+// phase reads c and dia again. Phase p writes plane p & 1 of ``scratch``,
+// laid out [plane][row][slot][part]; as in the grid path, a block writes
+// phase p + 2 only after the barrier of phase p + 1. The first block of a
+// row writes the row's root to lam.
 // At least 3 blocks an SM: unbounded, float64 takes 93 registers, 2 blocks
 // an SM, and two whole frames (330 blocks) would not fit on the card at
 // once; bounded, 80 registers and a few spilled bytes. Float32 then takes
@@ -635,7 +653,6 @@ project_rows_guided_grid_kernel(const T* __restrict__ b,
   const int row = blockIdx.x / bpr;
   const int part = blockIdx.x - row * bpr;
   const size_t off = static_cast<size_t>(row) * n;
-  const int base = part * (PER * kThreads);
   const T brow = b[row];
   const T caprow = has_sat ? cap[row] : T(CUDART_INF);
   const size_t plane = static_cast<size_t>(rows) * kGuidedSlots * bpr;
@@ -643,31 +660,58 @@ project_rows_guided_grid_kernel(const T* __restrict__ b,
   int phase = 0;
   auto buf = [&]() { return mine + (phase++ & 1) * plane; };
 
-  // Phase 0: pixels, the bracket and the anchors. Pad pixels hold c = 0,
-  // 1/dia = 0 and cap * dia = 0, so they add 0 to every residual.
-  T cv[PER], inv[PER], top[PER];
+  // Each pixel of this block's part as f(c, 1/dia, cap * dia, i): from
+  // registers, or (streamed) read from memory. Pad pixels (PER > 0) hold
+  // c = 0, 1/dia = 0 and cap * dia = 0, so they add 0 to every residual.
+  constexpr int kPer = PER > 0 ? PER : 1;
+  T cv[kPer], inv[kPer], top[kPer];
+  const int base = part * (kPer * kThreads);
+  auto pixels = [&](auto&& f) {
+    if constexpr (PER > 0) {
+#pragma unroll
+      for (int j = 0; j < PER; ++j)
+        f(cv[j], inv[j], top[j], base + tid + j * kThreads);
+    } else {
+      const size_t stride = static_cast<size_t>(bpr) * kThreads;
+      for (size_t i = static_cast<size_t>(part) * kThreads + tid;
+           i < static_cast<size_t>(n); i += stride) {
+        const T ci = c[off + i], di = dia[off + i];
+        f(ci, T(1) / di, has_sat ? caprow * di : T(CUDART_INF),
+          static_cast<int>(i));
+      }
+    }
+  };
+
+  // Phase 0: the pixels, the bracket and the anchors.
   T v0[kGuidedSlots] = {T(CUDART_INF), -T(CUDART_INF), -T(CUDART_INF), T(0),
                         T(0)};
   constexpr int kOps0 = kMin | kMax << 2 | kMax << 4 | kSum << 6 | kSum << 8;
+  auto anchor = [&](T ci, T di, T ii) {
+    const T neg = -ci;
+    const T up = brow * di - ci;
+    v0[0] = neg < v0[0] ? neg : v0[0];
+    v0[1] = up > v0[1] ? up : v0[1];
+    v0[2] = neg > v0[2] ? neg : v0[2];
+    v0[3] += ii;
+    v0[4] += dev_max(ci, T(0)) * ii;
+  };
+  if constexpr (PER > 0) {
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int i = base + tid + j * kThreads;
-    cv[j] = T(0);
-    inv[j] = T(0);
-    top[j] = T(0);
-    if (i < n) {
-      const T ci = c[off + i], di = dia[off + i];
-      cv[j] = ci;
-      inv[j] = T(1) / di;
-      top[j] = has_sat ? caprow * di : T(CUDART_INF);
-      const T neg = -ci;
-      const T up = brow * di - ci;
-      v0[0] = neg < v0[0] ? neg : v0[0];
-      v0[1] = up > v0[1] ? up : v0[1];
-      v0[2] = neg > v0[2] ? neg : v0[2];
-      v0[3] += inv[j];
-      v0[4] += dev_max(ci, T(0)) * inv[j];
+    for (int j = 0; j < PER; ++j) {
+      const int i = base + tid + j * kThreads;
+      cv[j] = T(0);
+      inv[j] = T(0);
+      top[j] = T(0);
+      if (i < n) {
+        const T ci = c[off + i], di = dia[off + i];
+        cv[j] = ci;
+        inv[j] = T(1) / di;
+        top[j] = has_sat ? caprow * di : T(CUDART_INF);
+        anchor(ci, di, inv[j]);
+      }
     }
+  } else {
+    pixels([&](T ci, T ii, T, int i) { anchor(ci, dia[off + i], ii); });
   }
   row_reduce<T, kGuidedSlots, kOps0>(v0, red, tot, buf(), part, bpr, grid);
   const T lo = tot[0];
@@ -681,12 +725,11 @@ project_rows_guided_grid_kernel(const T* __restrict__ b,
     T sum[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) sum[k] = T(0);
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
+    pixels([&](T ci, T ii, T ti, int) {
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        sum[k] += dev_min(dev_max(cv[j] + lam[k], T(0)), top[j]) * inv[j];
-    }
+        sum[k] += dev_min(dev_max(ci + lam[k], T(0)), ti) * ii;
+    });
     row_reduce<T, K, kSum>(sum, red, tot, buf(), part, bpr, grid);
 #pragma unroll
     for (int k = 0; k < K; ++k) r[k] = tot[k] - brow;
@@ -730,14 +773,11 @@ project_rows_guided_grid_kernel(const T* __restrict__ b,
                                      s.hi)
                            : s.hi;
   if (part == 0 && tid == 0) lam_out[row] = lam;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int i = base + tid + j * kThreads;
-    if (i < n) {
-      const T x = dev_max((cv[j] + lam) / dia[off + i], T(0));
-      out[off + i] = has_sat ? dev_min(caprow, x) : x;
-    }
-  }
+  pixels([&](T ci, T, T, int i) {
+    if (PER > 0 && i >= n) return;
+    const T x = dev_max((ci + lam) / dia[off + i], T(0));
+    out[off + i] = has_sat ? dev_min(caprow, x) : x;
+  });
 }
 
 // The kernel for rows of n pixels and its grid: the warp path for
@@ -840,44 +880,103 @@ int launch(const void* b, const void* c, const void* dia, const void* cap,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of the guided kernel that the device holds at once.
-template <typename T>
+// Blocks of the guided kernel with PER pixels a thread (0: streamed) that
+// the device holds at once.
+template <typename T, int PER>
 cudaError_t guided_capacity(int device, int* blocks) {
   int per_sm = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, project_rows_guided_grid_kernel<T, kGridPer>, kThreads, 0);
+      &per_sm, project_rows_guided_grid_kernel<T, PER>, kThreads, 0);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   *blocks = per_sm * sms;
   return err;
 }
 
+// How the guided kernel takes (rows, n): ``bpr`` blocks a row, ``group``
+// rows a launch (the last launch may take fewer), ``streamed`` whether a
+// block streams its part from memory, and ``capacity`` the blocks of that
+// kernel the card holds at once.
+// - A row of at most kGridChunk pixels is one block: no grid barrier, so
+//   any number of rows in one plain launch.
+// - A longer row is ceil(n / kGridChunk) blocks that hold their pixels in
+//   registers, if that many fit on the card; rows go in groups of as many
+//   as fit at once, one cooperative launch a group.
+// - A row longer than that (a whole 2048x2048 frame needs 4096 blocks)
+//   streams: groups of up to ``capacity`` rows, each row taking an equal
+//   share of the card's blocks.
+struct GuidedPlan {
+  int bpr, group, streamed, capacity;
+};
+
+template <typename T>
+cudaError_t guided_choose(int rows, int n, int device, GuidedPlan* p) {
+  const int full = (n + kGridChunk - 1) / kGridChunk;
+  *p = {1, rows > 0 ? rows : 1, 0, 0};
+  cudaError_t err = guided_capacity<T, kGridPer>(device, &p->capacity);
+  if (err != cudaSuccess || full == 1) return err;
+  if (full <= p->capacity) {
+    p->bpr = full;
+    p->group = p->capacity / full < rows ? p->capacity / full : rows;
+    return cudaSuccess;
+  }
+  err = guided_capacity<T, 0>(device, &p->capacity);
+  if (err != cudaSuccess) return err;
+  if (p->capacity < 1) return cudaErrorInvalidConfiguration;
+  p->streamed = 1;
+  p->group = p->capacity < rows ? p->capacity : rows;
+  p->bpr = p->capacity / p->group;
+  return cudaSuccess;
+}
+
+// The launches of guided_choose's plan ``p`` (its capacity unread), which
+// the caller asked for once and passes in, so that a launch makes no
+// device query.
 template <typename T>
 int launch_guided(const void* b, const void* c, const void* dia,
                   const void* cap, void* out, void* lam, void* scratch,
-                  int rows, int n, int n_passes, int has_sat, int device,
-                  void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
+                  int rows, int n, int n_passes, int has_sat, GuidedPlan p,
+                  int device, void* stream) {
+  const int full = (n + kGridChunk - 1) / kGridChunk;
+  if (p.bpr < 1 || p.group < 1 || (!p.streamed && p.bpr != full))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const T* bp = static_cast<const T*>(b);
-  const T* cp = static_cast<const T*>(c);
-  const T* dp = static_cast<const T*>(dia);
-  const T* capp = static_cast<const T*>(cap);
-  T* op = static_cast<T*>(out);
-  T* lp = static_cast<T*>(lam);
+  const auto s = static_cast<cudaStream_t>(stream);
+  void* kernel =
+      p.streamed
+          ? reinterpret_cast<void*>(project_rows_guided_grid_kernel<T, 0>)
+          : reinterpret_cast<void*>(
+                project_rows_guided_grid_kernel<T, kGridPer>);
   T* sp = static_cast<T*>(scratch);
-  int bpr = (n + kGridChunk - 1) / kGridChunk;
-  void* args[] = {&bp, &cp,   &dp, &capp,     &op,      &lp, &sp,
-                  &rows, &n, &n_passes, &has_sat, &bpr};
-  // cooperative, as the grid path: a grid that is not all resident at once
-  // is refused (cudaErrorCooperativeLaunchTooLarge), never hung
-  const cudaError_t launched = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(project_rows_guided_grid_kernel<T, kGridPer>),
-      dim3(rows * bpr), dim3(kThreads), args, 0,
-      static_cast<cudaStream_t>(stream));
-  if (launched != cudaSuccess) cudaGetLastError();  // as the grid path
-  return static_cast<int>(launched != cudaSuccess ? launched
-                                                  : cudaGetLastError());
+  int bpr = p.bpr;
+  for (int start = 0; start < rows; start += p.group) {
+    int g = rows - start < p.group ? rows - start : p.group;
+    const size_t at = static_cast<size_t>(start) * n;
+    const T* bp = static_cast<const T*>(b) + start;
+    const T* cp = static_cast<const T*>(c) + at;
+    const T* dp = static_cast<const T*>(dia) + at;
+    const T* capp = has_sat ? static_cast<const T*>(cap) + start : nullptr;
+    T* op = static_cast<T*>(out) + at;
+    T* lp = static_cast<T*>(lam) + start;
+    void* args[] = {&bp, &cp,   &dp, &capp,     &op,      &lp, &sp,
+                    &g,  &n, &n_passes, &has_sat, &bpr};
+    // one block a row needs no grid barrier; otherwise cooperative, as the
+    // grid path: a grid that is not all resident at once is refused
+    // (cudaErrorCooperativeLaunchTooLarge), never hung
+    const cudaError_t launched =
+        bpr == 1 ? cudaLaunchKernel(kernel, dim3(g), dim3(kThreads), args, 0,
+                                    s)
+                 : cudaLaunchCooperativeKernel(kernel, dim3(g * bpr),
+                                               dim3(kThreads), args, 0, s);
+    if (launched != cudaSuccess) {
+      cudaGetLastError();  // as the grid path
+      return static_cast<int>(launched);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 template <typename T>
@@ -888,6 +987,11 @@ int occupancy(int n, char* name, int len, int* blocks) {
              kGridPer);
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, project_rows_guided_grid_kernel<T, kGridPer>, kThreads, 0));
+  }
+  if (n == -3) {
+    snprintf(name, len, "project_rows_guided_grid_kernel<%c,0>", type);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, project_rows_guided_grid_kernel<T, 0>, kThreads, 0));
   }
   if (n < 0) {
     snprintf(name, len, "project_rows_grid_kernel<%c,%d>", type, kGridPer);
@@ -949,54 +1053,65 @@ extern "C" int tpu_sgp_project_rows_plan(int rows, int n, int is_f64,
   return static_cast<int>(err);
 }
 
-// The guided secant on long rows (project_rows_guided_grid_kernel): the
-// same pointers as above, lam a (rows,) output of the roots, cap read only
-// when has_sat (it may be null otherwise), scratch of the elements that
-// tpu_sgp_project_guided_plan asks for, and n_passes main passes. Returns
-// the launch's cudaError_t (0 on success).
+// The guided secant (project_rows_guided_grid_kernel) on rows of any
+// length: the same pointers as above, lam a (rows,) output of the roots,
+// cap read only when has_sat (it may be null otherwise), scratch of the
+// elements that tpu_sgp_project_guided_plan asks for, n_passes main passes,
+// and that plan's bpr, group and streamed. Returns the first failing
+// launch's cudaError_t (0 on success).
 extern "C" int tpu_sgp_project_guided_rows_f32(
     const void* b, const void* c, const void* dia, const void* cap, void* out,
     void* lam, void* scratch, int rows, int n, int n_passes, int has_sat,
-    int device, void* stream) {
+    int bpr, int group, int streamed, int device, void* stream) {
   return launch_guided<float>(b, c, dia, cap, out, lam, scratch, rows, n,
-                              n_passes, has_sat, device, stream);
+                              n_passes, has_sat, {bpr, group, streamed, 0},
+                              device, stream);
 }
 
 extern "C" int tpu_sgp_project_guided_rows_f64(
     const void* b, const void* c, const void* dia, const void* cap, void* out,
     void* lam, void* scratch, int rows, int n, int n_passes, int has_sat,
-    int device, void* stream) {
+    int bpr, int group, int streamed, int device, void* stream) {
   return launch_guided<double>(b, c, dia, cap, out, lam, scratch, rows, n,
-                               n_passes, has_sat, device, stream);
+                               n_passes, has_sat, {bpr, group, streamed, 0},
+                               device, stream);
 }
 
-// What a guided launch of (rows, n) needs: ``blocks`` its grid,
-// ``scratch`` its elements of scratch, and ``capacity`` the blocks of the
-// kernel that the device holds at once (the launch fits if blocks <=
-// capacity). Returns the cudaError_t of the device queries.
+// What the guided launches of (rows, n) are (guided_choose): ``blocks``
+// each launch's grid at most, ``scratch`` the elements of scratch they
+// share, ``launches`` their number, ``bpr`` the blocks a row, ``group``
+// the rows a launch and ``streamed`` 1 where a block streams its part.
+// Returns the cudaError_t of the device queries.
 extern "C" int tpu_sgp_project_guided_plan(int rows, int n, int is_f64,
                                            int device, int* blocks,
-                                           long long* scratch,
-                                           int* capacity) {
+                                           long long* scratch, int* launches,
+                                           int* bpr, int* group,
+                                           int* streamed) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int bpr = (n + kGridChunk - 1) / kGridChunk;
-  *blocks = rows * bpr;
-  *scratch = 2LL * rows * kGuidedSlots * bpr;
-  err = is_f64 ? guided_capacity<double>(device, capacity)
-               : guided_capacity<float>(device, capacity);
+  GuidedPlan p;
+  err = is_f64 ? guided_choose<double>(rows, n, device, &p)
+               : guided_choose<float>(rows, n, device, &p);
+  *blocks = p.group * p.bpr;
+  *scratch = 2LL * p.group * kGuidedSlots * p.bpr;
+  *launches = rows > 0 ? (rows + p.group - 1) / p.group : 0;
+  *bpr = p.bpr;
+  *group = p.group;
+  *streamed = p.streamed;
   return static_cast<int>(err);
 }
 
 // Instantiation i of the kernels (float32 then float64, each at the
 // largest n it takes: 32 .. 1024 the warp path in float32, up to 512 in
 // float64, the block path above, then the grid path and last the guided
-// secant's grid kernel): its name, that n (0: any), and its resident
-// blocks an SM. Returns -1 past the last, else the cudaError_t.
+// secant's grid kernel, in registers and streamed): its name, that n (0:
+// any), and its resident blocks an SM. Returns -1 past the last, else the
+// cudaError_t.
 extern "C" int tpu_sgp_flux_projection_occupancy(int i, int device,
                                                  char* name, int len, int* n,
                                                  int* blocks) {
-  static const int kSizes[] = {32, 64, 128, 256, 512, 1024, 2048, 0, -1, -2};
+  static const int kSizes[] = {32, 64, 128, 256, 512, 1024,
+                               2048, 0, -1, -2, -3};
   constexpr int kCount = sizeof(kSizes) / sizeof(kSizes[0]);
   if (i < 0 || i >= 2 * kCount) return -1;
   const cudaError_t err = cudaSetDevice(device);

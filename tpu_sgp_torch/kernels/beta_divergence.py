@@ -54,7 +54,8 @@ def beta_div_rows(den: torch.Tensor, gn: torch.Tensor, beta,
     tensor, another dtype, shapes that disagree, an empty row, a row not
     of unit stride, or sizes beyond a C int. ``launches['beta_div_rows']``
     counts the launches; under tracing each adds 1 to the counter
-    ``beta_div.launches`` of the innermost span."""
+    ``beta_div.launches`` of the innermost span and rows x N to its
+    ``beta_div.pixels``, the pixels whose den, gn and log gn it read."""
     if not den.is_cuda:
         raise ValueError(f'the kernel takes CUDA tensors, got one on '
                          f'{den.device}; CPU tensors take the plain version')
@@ -79,4 +80,5 @@ def beta_div_rows(den: torch.Tensor, gn: torch.Tensor, beta,
                  f'{n})',
             count=('beta_div_rows',))
         observability.count('beta_div.launches', 1)
+        observability.count('beta_div.pixels', rows * n)
     return fv, dsum

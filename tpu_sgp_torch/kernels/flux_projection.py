@@ -19,8 +19,8 @@ pixels, which the kernel splits over the card's SMs.
 
 ``project_guided_rows`` runs the same file's other grid kernel: the cold
 guided secant of the ``'bisect'`` method (``projection.flux_projection.
-_guided_root``) on a few long rows in one launch; ``guided_route`` says
-which rows it takes.
+_guided_root``) on rows of any number and length, in one launch where the
+card holds them at once; ``guided_route`` says which tensors it takes.
 """
 from __future__ import annotations
 
@@ -145,58 +145,55 @@ def project_rows(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
     return out
 
 
-# the guided secant on long rows: rows longer than this take the grid (the
-# rule of launch_plan)
-GUIDED_MIN_N = 2048
-_GUIDED_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4
+_GUIDED_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7
+_GUIDED_PLAN_OUTS = (ctypes.c_int, ctypes.c_longlong) + (ctypes.c_int,) * 4
 
 
 @_build.cached
 def guided_plan(rows: int, n: int, dtype: torch.dtype,
                 device: int = 0) -> tuple:
-    """What a guided launch of (rows, n) needs on ``device``: ``(blocks,
-    scratch elements, capacity)``, capacity being the blocks of the kernel
-    that the card holds at once; it fits if blocks <= capacity."""
+    """How the guided kernel takes (rows, n) on ``device``: ``(blocks,
+    scratch elements, launches, blocks a row, rows a launch, streamed)``.
+    A row of up to 1024 pixels is one block, and any number of them is one
+    launch; a longer row is split over blocks that hold its pixels in
+    registers, in groups of as many rows as the card holds at once, a
+    launch a group; a row too long for that (a 2048x2048 frame) shares
+    every block the card holds, each streaming its part from memory
+    (``streamed`` 1). ``blocks`` is a launch's grid at most. The launch
+    takes the plan from here, so it queries the card only once a shape."""
     return _build.query('flux_projection', 'tpu_sgp_project_guided_plan',
                         rows, n, int(dtype == torch.float64), device,
-                        outs=_PLAN_OUTS,
+                        outs=_GUIDED_PLAN_OUTS,
                         what='guided projection launch plan failed')
 
 
-def guided_route(rows: int, n: int, dtype: torch.dtype, device,
-                 sharded: bool = False, plan: tuple | None = None) -> str:
-    """Where a cold ``'bisect'`` projection of (rows, n) runs, from the
-    shape alone: ``'kernel'`` (``project_guided_rows``) for rows above
-    ``GUIDED_MIN_N`` pixels on a card whose blocks all fit on it at once,
-    else ``'plain'`` (the PyTorch ladder): CPU tensors, rows sharded over
-    mesh axes (their sums are collectives), short rows such as stamps, and
-    more long rows than the card holds. ``plan``, ``(blocks, capacity)``,
-    is the card's ``guided_plan`` unless given."""
+def guided_route(dtype: torch.dtype, device, sharded: bool = False) -> str:
+    """Where a cold ``'bisect'`` projection runs: ``'plain'`` (the PyTorch
+    ladder) for CPU tensors and for rows sharded over mesh axes (their
+    sums are collectives), ``'kernel'`` (``project_guided_rows``) for
+    every other CUDA tensor, whatever its shape. A CUDA tensor the kernel
+    cannot take (not float32 or float64) raises ``TypeError``."""
     device = torch.device(device)
-    if (sharded or device.type != 'cuda' or dtype not in _build.FLOATS
-            or n <= GUIDED_MIN_N):
+    if sharded or device.type != 'cuda':
         return 'plain'
-    if plan is None:
-        index = (device.index if device.index is not None
-                 else torch.cuda.current_device())
-        plan = guided_plan(rows, n, dtype, index)[::2]
-    blocks, capacity = plan
-    return 'kernel' if blocks <= capacity else 'plain'
+    if dtype not in _build.FLOATS:
+        raise TypeError(f'the guided kernel takes float32 or float64, got '
+                        f'{dtype}')
+    return 'kernel'
 
 
 def project_guided_rows(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
                         cap: torch.Tensor | None, n_passes: int,
                         has_sat: bool) -> tuple:
     """The cold guided secant of ``'bisect'`` on every row of ``c`` (B, N)
-    under the metric ``dia`` (B, N), on the card in one launch: a probe,
-    ``n_passes`` main passes, a finish pass and the closing secant, the
-    schedule of ``projection.flux_projection._guided_root``. ``b`` and
-    ``cap`` are (B,); ``cap`` (sat / scaling - eps) is read only with
-    ``has_sat``. Returns ``(x, lam)``.
+    under the metric ``dia`` (B, N), on the card: a probe, ``n_passes``
+    main passes, a finish pass and the closing secant, the schedule of
+    ``projection.flux_projection._guided_root``. ``b`` and ``cap`` are
+    (B,); ``cap`` (sat / scaling - eps) is read only with ``has_sat``.
+    Returns ``(x, lam)``.
 
-    CUDA tensors only; a launch that fails (a grid larger than the card
-    holds at once) raises. ``launches['project_guided_rows']`` counts the
-    launches."""
+    CUDA tensors only; the launches are ``guided_plan``'s, and a launch
+    that fails raises. ``launches['project_guided_rows']`` counts them."""
     if not c.is_cuda:
         raise ValueError('the guided kernel runs on CUDA tensors; CPU '
                          'tensors take the plain ladder')
@@ -210,14 +207,16 @@ def project_guided_rows(b: torch.Tensor, c: torch.Tensor, dia: torch.Tensor,
     if rows == 0:
         return out, lam
     device = c.device
-    _, scratch_len, _ = guided_plan(rows, n, c.dtype, device.index)
+    _, scratch_len, n_launches, bpr, group, streamed = guided_plan(
+        rows, n, c.dtype, device.index)
     scratch = torch.empty(scratch_len, dtype=c.dtype, device=device)
     _build.launch(
         _build.kernel('flux_projection', 'tpu_sgp_project_guided_rows',
                       c.dtype, _GUIDED_ARGS), device,
         b.data_ptr(), c.data_ptr(), dia.data_ptr(),
         cap.data_ptr() if has_sat else None, out.data_ptr(), lam.data_ptr(),
-        scratch.data_ptr(), rows, n, n_passes, int(has_sat),
+        scratch.data_ptr(), rows, n, n_passes, int(has_sat), bpr, group,
+        streamed,
         what=f'guided projection kernel launch failed ({rows} rows of {n})',
-        count=('project_guided_rows',))
+        count=('project_guided_rows',) * n_launches)
     return out, lam

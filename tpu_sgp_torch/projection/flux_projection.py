@@ -17,10 +17,10 @@ whose trip count differs per lane (warm bisect, 'secant') keep a per-lane
 mask, as a vmapped ``while_loop`` freezes a lane that has finished, and ask
 the host once a trip whether any lane still runs.
 
-On a card, 'bisect' on a few rows above 2048 pixels (a whole frame) runs
-as one launch of a grid kernel with the same schedule
-(``kernels.flux_projection.project_guided_rows``); the route comes from
-the shape (``guided_route``), and everything else keeps the plain ladder.
+On a card, 'bisect' runs as a grid kernel with the same schedule
+(``kernels.flux_projection.project_guided_rows``), one launch for a stamp
+batch or a whole frame; CPU tensors and rows sharded over mesh axes keep
+the plain ladder (``guided_route``).
 
 ``axes`` (an ``ops.mesh.MeshAxes``) projects an image sharded over mesh
 axes, as the JAX functions' ``axes`` do: every global quantity (the bracket,
@@ -346,16 +346,13 @@ def project_df_bisect(b, c, dia, scaling, sat_level=None,
     of a probe pass (4 points), ``newton_passes`` main passes and a finish
     pass (3 points each).
 
-    ``kernels.flux_projection.guided_route`` picks the route from the
-    shape alone: one launch of the guided grid kernel
-    (``_guided_root_kernel``) for a few rows above 2048 pixels on a card (a
-    whole frame); the plain ``_guided_root``, every step a few (B, K, N)
-    broadcasts in PyTorch, for CPU tensors, under mesh ``axes`` and for
-    short rows."""
+    ``kernels.flux_projection.guided_route`` picks the route: the guided
+    grid kernel (``_guided_root_kernel``) for CUDA tensors, whatever their
+    shape; the plain ``_guided_root``, every step a few (B, K, N)
+    broadcasts in PyTorch, for CPU tensors and under mesh ``axes``."""
     if has_sat is None:
         has_sat = sat_level is not None
-    if guided_route(c.shape[0], c.shape[-1], c.dtype, c.device,
-                    sharded=bool(axes)) == 'kernel':
+    if guided_route(c.dtype, c.device, sharded=bool(axes)) == 'kernel':
         return _guided_root_kernel(b, c, dia, scaling, sat_level, has_sat,
                                    n_iters)[0]
     return _guided_root(b, c, dia, scaling, sat_level, has_sat, n_iters,
