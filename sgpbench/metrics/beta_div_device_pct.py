@@ -1,8 +1,9 @@
 """The beta objective kernel's share of the card's work in the profiled
-stretch: 100 x its device time (the ``breakdown.device_ops`` entries whose
-name holds ``beta_div_kernel``, as ``beta_div_roofline_pct`` reads them)
-over the union of the device's activity intervals (``busy_s``). None where
-the kernel did not run in the stretch."""
+stretch: 100 x its device time (every operation of the whole stretch whose
+name holds ``beta_div_kernel``, as ``beta_div_roofline_pct`` reads them,
+under the same naming contract) over the union of the device's activity
+intervals (``busy_s``). None where the kernel did not run in the stretch or
+both types' kernels did."""
 import importlib.util
 import os
 

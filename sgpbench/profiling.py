@@ -1,5 +1,9 @@
 """The traced stretch of a window: ``torch.profiler`` over a span of calls,
-reduced to the device's busy time, its kernel launches and a breakdown.
+reduced to the device's busy time, its kernel launches, each operation's
+device seconds (``device_s``, for the metrics' readers) and a breakdown
+(the ten operations with the most of them, and the longest idle gaps); and
+the device clock of a whole window (``DeviceClock``), for an end-to-end
+metric read from the device's trace.
 
 The busy time is the union of the device's activity intervals (kernels,
 copies, sets), so that intervals that overlap count once. Idle gaps are the
@@ -12,6 +16,7 @@ stretches between them, each named at its middle as
 from __future__ import annotations
 
 import bisect
+import contextlib
 import time
 
 SPAN_PREFIX = 'sgpbench.'
@@ -89,10 +94,63 @@ class Stretch:
 
     def summary(self):
         """``None`` if nothing was profiled, else busy and window seconds,
-        kernel launches, the counts, and the breakdown."""
+        kernel launches, the counts, each operation's device seconds and
+        the breakdown."""
         if self.state != 'after':
             return None
         return reduce(self.prof, self.t1 - self.t0, self.calls, self.iters)
+
+
+class DeviceClock:
+    """The device's busy seconds over the calls of a whole window, for an
+    end-to-end metric read from the device's trace: each call profiled in a
+    session of its own that records device activity alone, so that no
+    session holds more than one call's kernels (a session's buffers are
+    bounded, and a window of a launch-bound loop holds about a million
+    kernels). ``busy_s`` is the sum over the calls of the union of their
+    kernels', copies' and sets' intervals; ``None`` when off, and always on
+    the CPU, which has no device trace."""
+
+    def __init__(self, enabled: bool, device: str):
+        self.enabled = enabled and device == 'cuda'
+        self.busy_s = 0.0 if self.enabled else None
+        self.calls = 0
+        if self.enabled:
+            # a session's first start is slow: pay it in set-up
+            with self.call():
+                import torch
+                torch.ones(1, device=device).add_(1)
+            self.busy_s, self.calls = 0.0, 0
+
+    @contextlib.contextmanager
+    def call(self):
+        if not self.enabled:
+            yield
+            return
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            prof.stop()
+            self.busy_s += device_busy_s(prof)
+            self.calls += 1
+
+
+def device_busy_s(prof) -> float:
+    """The union of a session's device activity intervals, in seconds:
+    kernels, copies and sets, not the ranges that host spans lay over them
+    on the device's line."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    intervals = [(e.start_ns(), e.end_ns())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda and not e.is_user_annotation()
+                 and not e.name().startswith((SPAN_PREFIX, PROGRAM_PREFIX))]
+    return sum(b - a for a, b in union(intervals)) / 1e9
 
 
 def union(intervals):
@@ -138,15 +196,22 @@ def reduce(prof, window_s: float, calls: int, iters: int):
         key = f'{name}/{prog}:{_at(ops, mid, "python")}'
         gaps[key] = gaps.get(key, 0.0) + (b - a) / 1e6
 
-    top = sorted((e for e in prof.key_averages()
-                  if e.self_device_time_total > 0
-                  and not e.key.startswith(SPAN_PREFIX)),
-                 key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    # every operation with device time, the most first; the breakdown
+    # prints the first ten, the readers take the whole stretch's
+    timed = sorted((e for e in prof.key_averages()
+                    if e.self_device_time_total > 0
+                    and not e.key.startswith(SPAN_PREFIX)),
+                   key=lambda e: e.self_device_time_total, reverse=True)
+    device_s = {}
+    for e in timed:
+        device_s[e.key] = (device_s.get(e.key, 0.0)
+                           + e.self_device_time_total / 1e6)
     return {'busy_s': busy_us / 1e6, 'window_s': window_s,
             'kernels': kernels, 'calls': calls, 'iters': iters,
+            'device_s': device_s,
             'breakdown': {
                 'device_ops': [[e.key, e.self_device_time_total / 1e6]
-                               for e in top],
+                               for e in timed[:10]],
                 'idle_gaps': sorted(([k, v] for k, v in gaps.items()),
                                     key=lambda kv: -kv[1])[:10]}}
 

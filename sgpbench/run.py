@@ -119,6 +119,7 @@ class Run:
         self.device = device
         self.setup_s = None
         self.setup_parts = {}
+        self.device_clock = False
         self._mark = _T0
 
     def part(self, name: str) -> None:
@@ -190,6 +191,10 @@ def run_cell(args, device: str = 'cuda', manifest_path=None,
                        'sgpbench_traffic_' + cell['kind'])
     run = Run(cell, config, args.seed, args.seconds, bool(args.trace),
               device)
+    # an end-to-end metric from the device's trace: the window's every call
+    # is profiled for the device's busy time (``profiling.DeviceClock``)
+    run.device_clock = not args.trace and any(
+        m['source'] == 'device_trace' for m in metrics)
     run.part('import')
     rec = kind.run(run)
     rec['setup_s'] = run.setup_s

@@ -25,6 +25,10 @@ Workload parameters (``sgpbench/workloads/<cell>.json``):
 - ``trace``: the profiled stretch, from the first call that starts after
   ``start_s`` seconds of the window to the end of the call in progress
   after ``span_s`` more.
+
+Where the cell has an end-to-end metric read from the device's trace, every
+call of a ``--trace 0`` window is profiled on its own for the device's busy
+seconds (``device_busy_s``; ``profiling.DeviceClock``).
 """
 from __future__ import annotations
 
@@ -166,6 +170,8 @@ def run(run) -> dict:
                                     replace=False)
     traced = cell.get('trace', {})
     stretch = profiling.Stretch(run.trace, run.device)
+    clock = profiling.DeviceClock(run.device_clock, run.device)
+    run.part('profilers')
     kept, sums, targets = {}, [], []
     iters_sum = lanes_done = calls = failed = 0
     t0 = run.window_start()
@@ -178,7 +184,7 @@ def run(run) -> dict:
             stretch.start()
         item = pool[order[calls % len(pool)]]
         try:
-            with profiling.span('call'):
+            with clock.call(), profiling.span('call'):
                 x, iters = call(item)
                 sync(run.device)
         except Exception as exc:  # noqa: BLE001 -- counted, the run goes on
@@ -224,6 +230,7 @@ def run(run) -> dict:
                             x=torch.as_tensor(x).cpu().numpy()))
     stamps = cell['inputs']['kind'] == 'stamps'
     rec = {'window_s': window_s, 'calls': calls,
+           'device_busy_s': clock.busy_s,
            'iters_sum': float(iters_sum),
            ('stamps_done' if stamps else 'frames_done'): lanes_done,
            'attempted': lanes_done + failed, 'failed': failed,
